@@ -3,8 +3,9 @@
 
 Phases, each printed as one JSON line:
 
-  build     compile the native host library (g++) and kernel K1 (nvcc) from
-            the sources in this checkout, both at once; seconds for each.
+  build     compile the native host library (g++) and kernels K1 and K2
+            (nvcc) from the sources in this checkout, all at once; seconds
+            for each.
   kernels   K1 against its plain PyTorch version on the card for the 11
             production (sz, M) shapes x qpd6 0-4 at 288 lanes (the main
             path's lane count for a 768x512 batch of 18): q, recon and sse
@@ -12,12 +13,28 @@ Phases, each printed as one JSON line:
             and of the plain version (torch.profiler), K1's time per call
             with the host's enqueue (CUDA events), and the least time the
             card could take.
+            K2 against its plain version at the lockstep path's four shapes
+            (PU events: 630 lanes, cap 256, a 39-slot palette; node events
+            at sz 8 / 16 / 32: 1260 lanes, caps 768 / 2048 / 7168, 69 / 67 /
+            59 slots), on the op strings of real candidate blocks, random
+            strings and adversarial ones (0xFF / carry / 0x00 runs): the 7
+            coder scalars and the palette must be equal (tolerance 0). Then
+            per-shape card time (profiler), call time (CUDA events), the
+            plain version's call time and the bound.
   slice     the main path, as a user calls it: encode_many_fast on 18
             synthetic 768x512 and 6 synthetic 512x768 images (qpd6=2,
             batch=18, RMD (12, 4), 'pre' prices, lean records, host pack).
             K1 must launch exactly 169 times per front step, and every
             stream must decode, through the independent native decoder, to
             the recon returned with it.
+  lockstep  the bit-exact lockstep engine, as a user calls it:
+            encode_batch on 18 synthetic 64x96 images (6 CTUs each,
+            qpd6=2), once with node_rates off and once on. Every stream must
+            equal the native engine's for the same image byte for byte and
+            decode to its recon; K1 must launch 5 times per node event and
+            once per PU event, K2 once per PU event (and once per node
+            event with node_rates). Then torch.profiler over one CTU per
+            image (node rates on): wall, card busy time, K1's and K2's part.
   profile   torch.profiler over two front steps at the main path's lanes:
             wall time, the card's busy time and K1's part of it.
   identity  3 small images at qpd6 0, 2 and 4, run on the card and on the
@@ -57,6 +74,14 @@ LAUNCHES_PER_FRONT = sum(PER_FRONT.values())            # 169
 # so half of the 67 TFLOP/s FP32 rate (a multiply-add counts as 2 ops)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
+# the lockstep path: a batch of 18 images 64x96 (6 CTUs); per CTU 21 node
+# events (sz 32: 1, 16: 4, 8: 16) and 64 PU events (csrc/hevce_host.cpp)
+LOCK_SHAPE = (64, 96)
+NODE_PER_CTU = {32: 1, 16: 4, 8: 16}
+PU_PER_CTU = 64
+# K2's work per op: decoding the op word, the bin update and the refill are
+# at least 30 int32 operations
+K2_OPS_PER_OP = 30
 
 
 def emit(obj):
@@ -110,7 +135,7 @@ def card_ms(torch, fn, reps):
 # ------------------------------------------------------------------- build
 
 def phase_build():
-    from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval
     from hevce_tpu_torch.runtime import native
 
     res, errs = {}, []
@@ -125,17 +150,20 @@ def phase_build():
         res[name] = (time.perf_counter() - t0, log)
 
     threads = [threading.Thread(target=run, args=a) for a in
-               (("host", native.build), ("fused_eval", fused_eval.build))]
+               (("host", native.build), ("fused_eval", fused_eval.build),
+                ("cabac_scan", cabac_scan.build))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errs:
         fail("build: " + " | ".join(errs))
-    ptxas = [ln.strip() for ln in res["fused_eval"][1].splitlines()
+    ptxas = [ln.strip() for k in ("fused_eval", "cabac_scan")
+             for ln in res[k][1].splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "host_lib_s": res["host"][0],
-          "fused_eval_s": res["fused_eval"][0], "ptxas": ptxas})
+          "fused_eval_s": res["fused_eval"][0],
+          "cabac_scan_s": res["cabac_scan"][0], "ptxas": ptxas})
 
 
 # ----------------------------------------------------------------- kernels
@@ -209,6 +237,159 @@ def phase_kernels(torch, dev, rng):
           "checked": checked, "exact": True, "max_abs_err": max_err,
           "library_ms": None,
           "library_note": "no single PyTorch call computes this function",
+          "shapes": shapes})
+    return max_err, shapes
+
+
+# ---------------------------------------------------------------- kernel K2
+
+def k2_shapes():
+    """the lockstep path's K2 shapes: (name, sz, lanes, cap, palette P,
+    launches per CTU with node_rates on)."""
+    from hevce_tpu_torch.ops import coef_ops
+    from hevce_tpu_torch.parallel import lockstep
+
+    shapes = [("pu", 4, BATCH * 35, lockstep.PU_CAP,
+               len(coef_ops._palette(4, False)[0]), PU_PER_CTU)]
+    for sz in (8, 16, 32):
+        shapes.append((f"node{sz}", sz, 2 * BATCH * 35,
+                       lockstep._NODE_CAPS[sz],
+                       len(coef_ops._palette(sz, True)[0]), NODE_PER_CTU[sz]))
+    return shapes
+
+
+def k2_block_inputs(torch, dev, rng, sz):
+    """K2's inputs as a lockstep event at sz hands them over: a batch of 18
+    requests cut from synthetic images (clamped neighbour reads), candidate
+    blocks from K1, op generation (ops/coef_ops), a fresh coder fork."""
+    from hevce_tpu_torch.bitstream import cabac as cb
+    from hevce_tpu_torch.models import cu_eval
+    from hevce_tpu_torch.ops import cabac_sim, coef_ops
+    from hevce_tpu_torch.parallel import lockstep
+
+    tops, lefts, origs = [], [], []
+    for b in range(BATCH):
+        img = synth_image(rng, 96, 128, (1.5, 6.0, 30.0)[b % 3])
+        y, x = int(rng.integers(1, 96 - sz)), int(rng.integers(1, 128 - sz))
+        cols = np.clip(np.arange(x - 1, x + 2 * sz), 0, 127)
+        rows = np.clip(np.arange(y, y + 2 * sz), 0, 95)
+        tops.append(img[y - 1, cols])
+        lefts.append(img[rows, x - 1])
+        origs.append(img[y:y + sz, x:x + sz])
+    to = lambda a: torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
+    top, left, orig = to(tops), to(lefts), to(origs)
+    fl = torch.ones((BATCH, 4), dtype=torch.bool, device=dev)
+    q1, _, _ = cu_eval.eval_2nx2n(sz, QPD6, top, left, fl, orig)
+    if sz == 4:
+        pm = torch.arange(35, dtype=torch.int32, device=dev).repeat(BATCH)
+        state, ops, nops, _ = coef_ops.put_coef_trials(
+            4, QPD6, pm, q1.reshape(-1, 4, 4), cap=lockstep.PU_CAP)
+        return state, ops, nops
+    q4, _, _ = cu_eval.eval_tusplit(sz, QPD6, top, left, fl, orig)
+    st = cabac_sim.initial_state(BATCH, QPD6, dev)
+    state7 = torch.stack([st[f] for f in cabac_sim.FIELDS], 1)
+    fctxs = torch.as_tensor(np.frombuffer(bytes(cb.new_context_set(QPD6)),
+                                          np.uint8).astype(np.int32),
+                            device=dev).repeat(BATCH, 1)
+    meta = torch.from_numpy(np.stack(
+        [rng.integers(0, 35, BATCH), rng.integers(0, 35, BATCH),
+         rng.integers(0, 2, BATCH), rng.integers(0, 2, BATCH)],
+        1).astype(np.int32)).to(dev)
+    fork, ops, nops, _, _ = lockstep._node_trials(sz, q1, q4, state7, fctxs,
+                                                  meta)
+    return fork, ops, nops
+
+
+def k2_synthetic_inputs(torch, dev, rng, lanes, cap, P, adversarial):
+    """random op strings over a P-slot palette, or adversarial ones: a
+    third all-ones bypass runs between bins (outstanding 0xFF bytes), a
+    third runs of seven 1-bins between single bins (carries into them), a
+    third all-zero runs (emulation-prevention bytes). Nop-padded past each
+    lane's random count."""
+    from hevce_tpu_torch.ops import cabac_sim as cs
+
+    shape = (lanes, cap)
+    ctx = (cs.KIND_CTX | (rng.integers(0, P, shape) << 2)
+           | (rng.integers(0, 2, shape) << 10))
+    n = rng.integers(1, 9, shape)
+    byp = (cs.KIND_BYPASS | (n << 2)
+           | ((rng.integers(0, 256, shape) & ((1 << n) - 1)) << 6))
+    term = cs.KIND_TERM | ((rng.random(shape) < 0.02) << 10)
+    r = rng.random(shape)
+    if adversarial:
+        third = np.arange(lanes)[:, None] * 3 // lanes
+        bit = cs.KIND_BYPASS | (1 << 2) | (rng.integers(0, 2, shape) << 6)
+        ops = np.where(
+            third == 0, np.where(r < 0.5, cs.pack_bypass(0xFF, 8), ctx),
+            np.where(third == 1,
+                     np.where(r < 0.5, cs.pack_bypass(0x7F, 7), bit),
+                     np.where(r < 0.9, cs.pack_bypass(0, 8), ctx)))
+    else:
+        ops = np.where(r < 0.45, ctx, np.where(r < 0.9, byp, term))
+    nops = rng.integers(cap // 2, cap + 1, lanes)
+    ops[np.arange(cap)[None, :] >= nops[:, None]] = cs.KIND_NOP
+    state = cs.initial_state(lanes, int(rng.integers(0, 5)), dev)
+    state["ctxs"] = state["ctxs"][:, :P].contiguous()
+    return (state, torch.from_numpy(ops.astype(np.int32)).to(dev),
+            torch.from_numpy(nops.astype(np.int32)).to(dev))
+
+
+def k2_cost(state, nops):
+    """(bytes, int32 ops) one call must move and do: the real ops (4 B
+    each), the op counts, the 7 scalars in and out, the palette in."""
+    lanes, P = state["ctxs"].shape
+    n = int(nops.sum())
+    return (4 * n + 4 * lanes + 2 * 7 * 4 * lanes + 4 * lanes * P,
+            K2_OPS_PER_OP * n)
+
+
+def phase_k2(torch, dev, rng):
+    from hevce_tpu_torch.ops import cabac_scan
+    from hevce_tpu_torch.ops import cabac_sim as cs
+
+    max_err, checked, shapes = 0, 0, []
+    for name, sz, lanes, cap, P, per_ctu in k2_shapes():
+        block = k2_block_inputs(torch, dev, rng, sz)
+        if tuple(block[1].shape) != (lanes, cap) or \
+                block[0]["ctxs"].shape[1] != P:
+            fail(f"K2 {name}: path inputs {tuple(block[1].shape)} P="
+                 f"{block[0]['ctxs'].shape[1]}, expected ({lanes}, {cap}) "
+                 f"P={P}")
+        cases = [("blocks", block),
+                 ("random", k2_synthetic_inputs(torch, dev, rng, lanes, cap,
+                                                P, False)),
+                 ("adversarial", k2_synthetic_inputs(torch, dev, rng, lanes,
+                                                     cap, P, True))]
+        for case, (state, ops, nops) in cases:
+            got = cabac_scan.advance_rates(state, ops, nops, want_ctxs=True)
+            torch.cuda.synchronize()
+            want = cabac_scan.scan_plain(state, ops, nops)
+            for k in cs.FIELDS + ("ctxs",):
+                err = int((got[k].to(torch.int64)
+                           - want[k].to(torch.int64)).abs().max())
+                max_err = max(max_err, err)
+                if err:
+                    fail(f"K2 {k} differs from the plain version at {name} "
+                         f"({case}): max |err| {err}")
+            checked += 1
+        state, ops, nops = block
+        k2 = lambda: cabac_scan.advance_rates(state, ops, nops)
+        plain = lambda: cabac_scan.scan_plain(state, ops, nops)
+        nbytes, n_ops = k2_cost(state, nops)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+        shapes.append({
+            "shape": name, "lanes": lanes, "cap": cap, "P": P,
+            "per_ctu": per_ctu, "sum_nops": int(nops.sum()),
+            "max_nops": int(nops.max()), "ms": card_ms(torch, k2, 20),
+            "call_ms": cuda_ms(torch, k2, 50),
+            "plain_ms": cuda_ms(torch, plain, 1),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"})
+    emit({"phase": "kernels", "kernel": "cabac_scan", "checked": checked,
+          "exact": True, "max_abs_err": max_err, "library_ms": None,
+          "library_note": "no single PyTorch call computes a CABAC rate scan",
+          "plain_note": "plain_ms is CUDA-event time per call (its "
+                        "thousands of small launches included)",
           "shapes": shapes})
     return max_err, shapes
 
@@ -306,6 +487,93 @@ def phase_slice(torch, dev, rng, card):
           "bpp_mean": float(np.mean(bpp)), "decoded": len(streams),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     return launches
+
+
+# ---------------------------------------------------------------- lockstep
+
+def phase_lockstep(torch, dev, rng, card):
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval
+    from hevce_tpu_torch.parallel import lockstep
+    from hevce_tpu_torch.runtime import native
+    from hevce_tpu_torch.utils.tracing import PhaseTimer
+
+    sigmas = (1.5, 3.0, 6.0, 30.0)
+    imgs = [synth_image(rng, *LOCK_SHAPE, sigmas[i % 4]) for i in range(BATCH)]
+    refs = [native.encode_image_native(im, QPD6) for im in imgs]
+    ctus = (LOCK_SHAPE[0] // 32) * (LOCK_SHAPE[1] // 32)
+    want_node = sum(NODE_PER_CTU.values()) * ctus
+    want_pu = PU_PER_CTU * ctus
+    # warm-up: one small batch through both modes
+    for nr in (False, True):
+        lockstep.encode_batch([im[:32, :32] for im in imgs[:2]], QPD6,
+                              node_rates=nr, device=dev)
+    torch.cuda.synchronize()
+
+    runs, k1_total, k2_total = [], 0, 0
+    for node_rates in (False, True):
+        timer = PhaseTimer()
+        fused_eval.LAUNCHES = 0
+        cabac_scan.LAUNCHES = 0
+        t0 = time.perf_counter()
+        streams, rcons = lockstep.encode_batch(imgs, QPD6,
+                                               node_rates=node_rates,
+                                               timer=timer, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+        node = sum(n for k, n in timer.counts.items()
+                   if k.startswith("device_math_node"))
+        pu = timer.counts["device_math_pu"]
+        fetch = timer.counts["winner_fetch"] // 2
+        if (node, pu) != (want_node, want_pu):
+            fail(f"lockstep ran {node} node / {pu} PU events, expected "
+                 f"{want_node} / {want_pu}")
+        if k1 != 5 * node + pu:
+            fail(f"K1 launched {k1} times on the lockstep path, expected "
+                 f"5 x {node} node + {pu} PU events")
+        if k2 != pu + (node if node_rates else 0):
+            fail(f"K2 launched {k2} times on the lockstep path "
+                 f"(node_rates={node_rates}), expected {pu} PU"
+                 + (f" + {node} node events" if node_rates else " events"))
+        for i, (s, r) in enumerate(zip(streams, rcons)):
+            if s != refs[i][0] or not np.array_equal(r, refs[i][1]):
+                fail(f"lockstep image {i} (node_rates={node_rates}) differs "
+                     f"from the native engine's encode")
+            if not np.array_equal(native.decode_stream(s), r):
+                fail(f"lockstep stream {i} does not decode to its recon")
+        k1_total += k1
+        k2_total += k2
+        runs.append({"node_rates": node_rates, "wall_s": wall,
+                     "events": {"node": node, "pu": pu, "fetch": fetch},
+                     "events_per_s": (node + pu + fetch) / wall,
+                     "k1_launches": k1, "k2_launches": k2,
+                     "phases_s": dict(timer.totals),
+                     "byte_identical": len(streams)})
+    # where one CTU's time goes: torch.profiler over a batch of one-CTU
+    # crops with node rates on (wall timed inside the profiled region)
+    crops = [im[:32, :32] for im in imgs]
+    wall = []
+
+    def one_ctu():
+        t0 = time.perf_counter()
+        lockstep.encode_batch(crops, QPD6, node_rates=True, device=dev)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    ks = card_kernels(torch, one_ctu)
+    busy_us = sum(us for _, us, _ in ks)
+    prof = {"ctus": 1, "node_rates": True, "wall_s": wall[0],
+            "card_busy_ms": busy_us / 1e3,
+            "card_busy_share": busy_us / 1e6 / wall[0],
+            "k1_ms": sum(us for k, us, _ in ks if "k1_kernel" in k) / 1e3,
+            "k2_ms": sum(us for k, us, _ in ks if "k2_kernel" in k) / 1e3,
+            "kernels": sum(n for _, _, n in ks)}
+    emit({"phase": "lockstep", "card": card, "images": len(imgs),
+          "shape": list(LOCK_SHAPE), "ctus_per_image": ctus, "qpd6": QPD6,
+          "batch": BATCH, "bytes_mean": float(np.mean([len(r[0])
+                                                       for r in refs])),
+          "runs": runs, "profile_one_ctu": prof})
+    return k1_total, k2_total
 
 
 # ----------------------------------------------------------------- profile
@@ -408,7 +676,9 @@ def main():
 
     phase_build()
     max_err, shapes = phase_kernels(torch, dev, rng)
+    k2_err, k2_shapes_ = phase_k2(torch, dev, rng)
     launches = phase_slice(torch, dev, rng, card)
+    lock_k1, lock_k2 = phase_lockstep(torch, dev, rng, card)
     phase_profile(torch, dev, rng)
     phase_identity(dev)
 
@@ -416,6 +686,8 @@ def main():
 
     per_front = lambda key, keep=lambda s: True: sum(
         s["per_front"] * s[key] for s in shapes if keep(s))
+    per_ctu = lambda key, keep=lambda s: True: sum(
+        s["per_ctu"] * s[key] for s in k2_shapes_ if keep(s))
     t_bound = per_front("bound_ms")
     by_ops = per_front("bound_ms", lambda s: s["bound_by"] == "operations")
     emit({"kernels": [{
@@ -427,9 +699,24 @@ def main():
         "bound_ms": t_bound,
         "bound_by": "operations" if by_ops * 2 > t_bound else "bytes",
         "library_ms": None, "call_ms": per_front("call_ms"),
+        "lockstep_launches": lock_k1,
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
-                 f"call_ms includes the host's enqueue"}]})
+                 f"call_ms includes the host's enqueue"}, {
+        "name": "cabac_scan", "route": "cuda",
+        "source": "hevce_tpu_torch/csrc/cabac_scan.cu",
+        "replaces": "hevce_tpu/ops/cabac_pallas.py:190",
+        "launches": lock_k2, "max_abs_err": k2_err,
+        "ms": per_ctu("ms"), "plain_ms": per_ctu("plain_ms"),
+        "bound_ms": per_ctu("bound_ms"),
+        "bound_by": "operations" if per_ctu(
+            "bound_ms", lambda s: s["bound_by"] == "operations") * 2
+        > per_ctu("bound_ms") else "bytes",
+        "library_ms": None, "call_ms": per_ctu("call_ms"),
+        "basis": f"one CTU of the lockstep path with node_rates on at a "
+                 f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
+                 f"21 node launches at 1260 lanes), on op strings of "
+                 f"synthetic blocks; launches count both lockstep runs"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

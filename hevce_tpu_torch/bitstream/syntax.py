@@ -1,9 +1,11 @@
-"""Coefficient scan tables and the last-XY group index (numpy).
+"""Coefficient scan tables and residual-coding context tables (numpy).
 
 The part of the JAX package's bitstream/syntax.py that the wavefront rate
-model needs (models/wavefront._scan_consts): CG-major diagonal / horizontal /
-vertical scan orders and the H.265 last-significant group index
-(H.265 9.3.4.2.3; reference src/HEVCe.c:1046-1150).
+model (models/wavefront._scan_consts) and the residual op-string generator
+(ops/coef_ops) need: CG-major diagonal / horizontal / vertical scan orders,
+the H.265 last-significant group index and group base, the last-XY context
+rows and shifts, and the significance-flag context index (H.265 9.3.4.2;
+reference src/HEVCe.c:1046-1150).
 """
 import functools
 
@@ -43,6 +45,41 @@ def scan_table(sz: int, scan_type: int) -> np.ndarray:
     return np.array(out, np.int32)
 
 
-# last-significant group index (H.265 9.3.4.2.3)
+# last-significant group index / base (H.265 9.3.4.2.3)
 GROUP_INDEX = np.array([0, 1, 2, 3, 4, 4, 5, 5] + [6] * 4 + [7] * 4
                        + [8] * 8 + [9] * 8, np.int32)
+MIN_IN_GROUP = np.array([0, 1, 2, 3, 4, 6, 8, 12, 16, 24], np.int32)
+
+# last_x/last_y context row + shift per (is_chroma, sz//8)
+_LAST_ADDR = ((0, 1, 2, 0, 3), (4, 4, 4, 0, 4))
+_LAST_SFT = ((0, 1, 1, 0, 1), (0, 1, 2, 0, 3))
+
+# 4x4 significance ctx offsets (H.265 table 9-43)
+_SIG4 = ((0, 1, 4, 5), (2, 3, 4, 5), (6, 6, 8, 8), (7, 7, 8, 8))
+_SIG_POS = (2, 1, 1, 0, 0, 0, 0)
+
+
+def sig_ctx_idx(sz, is_chroma, scan_type, y, x, sig_ctx):
+    """context index of a significance flag (src/HEVCe.c:1092-1122)."""
+    base = 28 if is_chroma else 0
+    if y == 0 and x == 0:
+        return base
+    if sz == 4:
+        return base + _SIG4[y][x]
+    base += 9
+    if not is_chroma:
+        if sz >= 16:
+            base += 12
+        if sz == 8 and scan_type != SCAN_DIAG:
+            base += 6
+        if (y >> 2) or (x >> 2):
+            base += 3
+    elif sz >= 16:
+        base += 3
+    if sig_ctx == 0:
+        return base + _SIG_POS[(y & 3) + (x & 3)]
+    if sig_ctx == 1:
+        return base + _SIG_POS[(y & 3) << 1]
+    if sig_ctx == 2:
+        return base + _SIG_POS[(x & 3) << 1]
+    return base + 2

@@ -12,7 +12,8 @@ dequant -> iDCT -> reconstruct -> SSE once per (mode, TU layout) candidate
   blk_orig: (..., sz, sz) uint8 original pixels
 
   eval_2nx2n    -> (quant (...,35,sz,sz), recon (...,35,sz,sz), sse (...,35))
-  eval_tusplit  -> (quant (...,T,4,h,h), recon (...,T,sz,sz), sse (...,T))
+  eval_tusplit  -> (quant (...,T,4,h,h), recon (...,T,sz,sz), sse (...,T)),
+                   T = 35 (dense) or the preselected lanes
 """
 import torch
 
@@ -53,16 +54,20 @@ def _select_pred(sz: int, S, sel_oh):
 
 
 def eval_tusplit(sz: int, qpd6: int, ctx_top, ctx_left, flags, blk_orig,
-                 sel_oh):
-    """four-TU evaluation over T preselected mode lanes (reference step 3,
-    src/HEVCe.c:1455-1484); lane t predicts with its one-hot mode sel_oh
-    (..., T, 35).
+                 sel_oh=None):
+    """four-TU evaluation over a mode-lane axis (reference step 3,
+    src/HEVCe.c:1455-1484).
+
+    sel_oh=None: the lane axis is all 35 modes, lane m predicting with mode
+    m (intra.predict_per_lane); the lockstep engine's node step.
+    sel_oh (..., T, 35) bool: T preselected lanes (RMD fast mode); lane t
+    predicts with its one-hot mode.
 
     Sub-TU isub order is z-order; each lane chains through its own
     reconstruction canvas. Sub-block border existence follows the reference
     tables (src/HEVCe.c:1376-1379)."""
     h = sz // 2
-    M = sel_oh.shape[-2]
+    M = 35 if sel_oh is None else sel_oh.shape[-2]
     bshape = blk_orig.shape[:-2]
     bll, blb, baa, bar = (flags[..., i] for i in range(4))
     true_ = torch.ones_like(bll)
@@ -109,7 +114,8 @@ def eval_tusplit(sz: int, qpd6: int, ctx_top, ctx_left, flags, blk_orig,
 
         fl = [bc0(f) for f in sub_flags[isub]]
         S = intra.build_borders(h, corner, left2, top2, *fl)
-        pred = _select_pred(h, S, sel_oh)
+        pred = (intra.predict_per_lane(h, S) if sel_oh is None
+                else _select_pred(h, S, sel_oh))
         sub_orig = blk_orig[..., oy:oy + h, ox:ox + h]
         q, recon, _ = pipeline_sse(h, qpd6, pred, sub_orig)
         quants.append(q)

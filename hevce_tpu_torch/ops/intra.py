@@ -143,6 +143,34 @@ def _angular_mm(sz, S):
     return ang.reshape(S.shape[:-1] + (35, sz, sz))
 
 
+def _angular_mm_per_lane(sz, S):
+    """Mode-diagonal variant: S (..., 35, n), lane m predicted with mode m
+    only -> (..., 35, sz, sz). One mode-batched float32 product, exact for
+    the same reason as _angular_mm (TF32 off, sums below 2^24)."""
+    w = params.tables(S.device)["angular"][sz]             # (35, nn, n)
+    lead = S.shape[:-2]
+    Sm = S.to(torch.float32).reshape(-1, 35, S.shape[-1]).transpose(0, 1)
+    acc = torch.bmm(Sm, w.transpose(1, 2))                 # (35, batch, nn)
+    ang = (acc.to(torch.int32) + 16) >> 5
+    return ang.transpose(0, 1).reshape(lead + (35, sz, sz))
+
+
+def predict_per_lane(sz: int, S: torch.Tensor) -> torch.Tensor:
+    """Mode-diagonal prediction: lane m of S predicts with mode m only.
+
+    S: (..., 35, 2+8*sz) int32 border vectors, one per mode lane (they
+    differ when sub-TU chaining gives each mode its own reconstruction).
+    Returns (..., 35, sz, sz) uint8. Used by the dense TU-split evaluation;
+    predict_all_modes covers the shared-border case."""
+    out = _angular_mm_per_lane(sz, S)
+    # closed-form rows use each lane's own border vector
+    out[..., C.PMODE_PLANAR, :, :] = _planar_block(sz, S[..., C.PMODE_PLANAR, :])
+    out[..., C.PMODE_DC, :, :] = _dc_block(sz, S[..., C.PMODE_DC, :])
+    out[..., C.PMODE_HOR, :, :] = _hor_block(sz, S[..., C.PMODE_HOR, :])
+    out[..., C.PMODE_VER, :, :] = _ver_block(sz, S[..., C.PMODE_VER, :])
+    return out.to(torch.uint8)
+
+
 def _split_S(sz, S):
     ubla = S[..., 0]
     ublb = S[..., 1:1 + 2 * sz]

@@ -5,7 +5,8 @@ encoder, the decision-record pack (pack_forest_img: it replays the quant
 levels and recon from the decisions and the original image, then runs the
 real CABAC) and an independent decoder. The port compiles it at first use
 with the same g++ flags as tools/build_native.py into build/hevce_tpu_torch/
-(runtime/build), and binds the functions the wavefront fast mode needs.
+(runtime/build), and binds the functions the wavefront fast mode and the
+lockstep engine (parallel/lockstep, through the hevce_batch_* API) need.
 """
 import ctypes
 import threading
@@ -56,8 +57,31 @@ def _load():
         lib.hevce_decode.argtypes = [
             _U8P, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int), _U8P]
+        _bind_batch(lib)
         _lib = lib
         return lib
+
+
+def _bind_batch(lib):
+    """the lockstep batch API (csrc/hevce_host.cpp hevce_batch_*): B worker
+    threads whose per-event math requests rendezvous in shared buffers."""
+    vp = ctypes.c_void_p
+    lib.hevce_batch_create.restype = vp
+    lib.hevce_batch_create.argtypes = [_U8P] + [ctypes.c_int] * 4
+    lib.hevce_batch_next.restype = ctypes.c_int
+    lib.hevce_batch_next.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    lib.hevce_batch_supply.restype = None
+    lib.hevce_batch_supply.argtypes = [vp]
+    lib.hevce_batch_buf.restype = vp
+    lib.hevce_batch_buf.argtypes = [vp, ctypes.c_int]
+    lib.hevce_batch_stream.restype = ctypes.c_longlong
+    lib.hevce_batch_stream.argtypes = [vp, ctypes.c_int, _U8P]
+    lib.hevce_batch_rcon.restype = None
+    lib.hevce_batch_rcon.argtypes = [vp, ctypes.c_int, _U8P]
+    lib.hevce_batch_abort.restype = None
+    lib.hevce_batch_abort.argtypes = [vp]
+    lib.hevce_batch_destroy.restype = None
+    lib.hevce_batch_destroy.argtypes = [vp]
 
 
 def stream_capacity(ysz: int, xsz: int) -> int:

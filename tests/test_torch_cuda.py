@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from hevce_tpu_torch.models import wavefront as wf
-from hevce_tpu_torch.ops import fused_eval
+from hevce_tpu_torch.ops import cabac_scan, cabac_sim, coef_ops, fused_eval
+from hevce_tpu_torch.parallel import lockstep
+from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
@@ -21,8 +23,8 @@ SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -78,3 +80,75 @@ def test_card_records_equal_cpu_records(cuda_device):
         bufs.append(out.numpy().tobytes())
     assert fused_eval.LAUNCHES - n0 == 169 * (2 * (2 - 1) + 3)
     assert bufs[0] == bufs[1]
+
+
+def _k2_inputs(lanes, L, P, seed):
+    """random op strings over a P-slot palette, nop-padded past each lane's
+    count, plus runs of all-ones and all-zero bypass chunks."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 3, (lanes, L))
+    ctx = (cabac_sim.KIND_CTX | (rng.integers(0, P, (lanes, L)) << 2)
+           | (rng.integers(0, 2, (lanes, L)) << 10))
+    n = rng.integers(1, 9, (lanes, L))
+    byp = (cabac_sim.KIND_BYPASS | (n << 2)
+           | ((rng.integers(0, 256, (lanes, L)) & ((1 << n) - 1)) << 6))
+    term = cabac_sim.KIND_TERM | ((rng.random((lanes, L)) < 0.05) << 10)
+    ops = np.where(kind == 0, ctx, np.where(kind == 1, byp, term))
+    ops[:lanes // 4] = cabac_sim.pack_bypass(0xFF, 8)
+    ops[lanes // 4:lanes // 2:2] = cabac_sim.pack_bypass(0, 8)
+    nops = rng.integers(0, L + 1, lanes)
+    ops[np.arange(L)[None, :] >= nops[:, None]] = cabac_sim.KIND_NOP
+    state = cabac_sim.initial_state(lanes, int(seed) % 5)
+    state["ctxs"] = state["ctxs"][:, :P].contiguous()
+    return state, torch.from_numpy(ops.astype(np.int32)), \
+        torch.from_numpy(nops.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,L,P", [(630, 256, 39), (1260, 768, 69),
+                                       (1260, 2048, 67), (37, 100, 142)])
+def test_k2_kernel_matches_plain_on_card(cuda_device, lanes, L, P):
+    state, ops, nops = _k2_inputs(lanes, L, P, lanes + L + P)
+    dstate = {k: v.to(cuda_device) for k, v in state.items()}
+    n0 = cabac_scan.LAUNCHES
+    got = cabac_scan.advance_rates(dstate, ops.to(cuda_device),
+                                   nops.to(cuda_device), want_ctxs=True)
+    torch.cuda.synchronize()
+    assert cabac_scan.LAUNCHES == n0 + 1
+    want = cabac_scan.scan_plain(state, ops, nops)
+    for k in cabac_sim.FIELDS + ("ctxs",):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_put_coef_rates_on_card_equal_cpu(cuda_device):
+    rng = np.random.default_rng(3)
+    for sz in (4, 8, 16, 32):
+        blk = np.where(rng.random((70, sz, sz)) < 0.3,
+                       rng.integers(-60, 61, (70, sz, sz)), 0)
+        blk[0] = 32767
+        pm = torch.from_numpy(rng.integers(0, 35, 70).astype(np.int32))
+        cpu = coef_ops.put_coef_rates(sz, 2, pm, torch.from_numpy(blk))
+        card = coef_ops.put_coef_rates(sz, 2, pm.to(cuda_device),
+                                       torch.from_numpy(blk).to(cuda_device))
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b), sz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("node_rates,pipeline", [(False, False), (True, True)])
+def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(0, 256, (32, 64)).astype(np.uint8) for _ in range(2)]
+    k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+    streams, rcons = lockstep.encode_batch(imgs, 2, node_rates=node_rates,
+                                           pipeline=pipeline,
+                                           device=cuda_device)
+    runs = 2 if pipeline else 1
+    node, pu = 21 * 2 * runs, 64 * 2 * runs          # two CTUs per image
+    assert fused_eval.LAUNCHES - k1 == 5 * node + pu
+    assert cabac_scan.LAUNCHES - k2 == pu + (node if node_rates else 0)
+    for im, s, r in zip(imgs, streams, rcons):
+        s_ref, r_ref = native.encode_image_native(im, 2)
+        assert s == s_ref
+        assert np.array_equal(r, r_ref)

@@ -24,7 +24,8 @@ from hevce_tpu.ops import xform as jxform
 from hevce_tpu_torch import params
 from hevce_tpu_torch.models import wavefront as twf
 from hevce_tpu_torch.ops import constants as TC
-from hevce_tpu_torch.ops import fused_eval, intra, quant, rdcost, satd, xform
+from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, fused_eval, intra,
+                                 quant, rdcost, satd, xform)
 from hevce_tpu_torch.runtime import native
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -384,3 +385,43 @@ def test_k1_wrapper_routes_by_device():
                                                   **meta),
                                 torch.empty(3, 8, 8, dtype=torch.uint8, **meta))
     assert fused_eval.LAUNCHES == n0
+
+
+def test_k2_wrapper_routes_by_device():
+    """CPU tensors take the plain scan and launch nothing; a meta tensor, a
+    wrong dtype or a bad shape raises (never a fallback)."""
+    rng = np.random.default_rng(91)
+    lanes, L = 6, 12
+    ops = np.full((lanes, L), cabac_sim.KIND_NOP, np.int32)
+    nops = rng.integers(0, L + 1, lanes).astype(np.int32)
+    for i in range(lanes):
+        ops[i, :nops[i]] = [cabac_sim.pack_op(cabac_sim.KIND_CTX,
+                                              int(rng.integers(0, 39)),
+                                              int(rng.integers(0, 2)))
+                            for _ in range(nops[i])]
+    state = cabac_sim.initial_state(lanes, 2)
+    state["ctxs"] = state["ctxs"][:, :39].contiguous()
+    n0 = cabac_scan.LAUNCHES
+    got = cabac_scan.advance_rates(state, _t(ops), _t(nops))
+    want = cabac_scan.scan_plain(state, _t(ops), _t(nops))
+    assert cabac_scan.LAUNCHES == n0
+    for k in cabac_sim.FIELDS + ("ctxs",):
+        assert torch.equal(got[k], want[k]), k
+
+    def meta(st):
+        return {k: v.to("meta") for k, v in st.items()}
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cabac_scan.advance_rates(meta(state), _t(ops).to("meta"),
+                                 _t(nops).to("meta"))
+    with pytest.raises(TypeError, match="int32"):
+        cabac_scan.advance_rates(meta(state), _t(ops).to("meta", torch.int64),
+                                 _t(nops).to("meta"))
+    with pytest.raises(TypeError, match="int32"):
+        cabac_scan.advance_rates(state, _t(ops), _t(nops).long())
+    with pytest.raises(ValueError, match="do not fit"):
+        cabac_scan.advance_rates(state, _t(ops), _t(nops[:-1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        cabac_scan.advance_rates(state, _t(ops.T.copy()).T, _t(nops))
+    with pytest.raises(ValueError, match="one device"):
+        cabac_scan.advance_rates(state, _t(ops).to("meta"), _t(nops))
+    assert cabac_scan.LAUNCHES == n0
