@@ -13,6 +13,11 @@ Phases, each printed as one JSON line:
             and of the plain version (torch.profiler), K1's time per call
             with the host's enqueue (CUDA events), and the least time the
             card could take.
+            K1 again at the lockstep path's calls: 18 rows of 35 candidates
+            at sz 4 / 8 / 16 / 32 x qpd6 0-4, the inputs taken from
+            eval_2nx2n and the dense eval_tusplit on real requests (K1's
+            last block of candidates is partial at sz 4 and 8); tolerance
+            0, and the same times for each size.
             K2 against its plain version at the lockstep path's four shapes
             (PU events: 630 lanes, cap 256, a 39-slot palette; node events
             at sz 8 / 16 / 32: 1260 lanes, caps 768 / 2048 / 7168, 69 / 67 /
@@ -29,12 +34,14 @@ Phases, each printed as one JSON line:
             the recon returned with it.
   lockstep  the bit-exact lockstep engine, as a user calls it:
             encode_batch on 18 synthetic 64x96 images (6 CTUs each,
-            qpd6=2), once with node_rates off and once on. Every stream must
-            equal the native engine's for the same image byte for byte and
-            decode to its recon; K1 must launch 5 times per node event and
-            once per PU event, K2 once per PU event (and once per node
-            event with node_rates). Then torch.profiler over one CTU per
-            image (node rates on): wall, card busy time, K1's and K2's part.
+            qpd6=2), with node_rates off, on, and off with pipeline=True
+            (two halves of 9). Every stream must equal the native engine's
+            for the same image byte for byte and decode to its recon; K1
+            must launch 5 times per node event and once per PU event, K2
+            once per PU event (and once per node event with node_rates).
+            Then the host's time per event part (eval, op generation, K2)
+            at each size, and torch.profiler over one CTU per image (node
+            rates on): wall, card busy time, K1's and K2's part.
   profile   torch.profiler over two front steps at the main path's lanes:
             wall time, the card's busy time and K1's part of it.
   identity  3 small images at qpd6 0, 2 and 4, run on the card and on the
@@ -48,6 +55,7 @@ and prints no result.
 Usage: python3 chip_smoke.py [--seed N]
 """
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -79,6 +87,9 @@ INT32_OPS_PER_S = 67e12 / 2
 LOCK_SHAPE = (64, 96)
 NODE_PER_CTU = {32: 1, 16: 4, 8: 16}
 PU_PER_CTU = 64
+# K1 launches per CTU there, all at (sz, 35) and 18 rows: a PU event's
+# 2Nx2N, a node event's 2Nx2N and its four sub-TUs at sz / 2
+K1_PER_CTU = {4: 128, 8: 32, 16: 8, 32: 1}
 # K2's work per op: decoding the op word, the bin update and the refill are
 # at least 30 int32 operations
 K2_OPS_PER_OP = 30
@@ -196,49 +207,81 @@ def k1_cost(sz, M, lanes):
     return nbytes, ops
 
 
-def phase_kernels(torch, dev, rng):
+def k1_compare(torch, sz, qpd6, pred, blk, where):
+    """K1 against its plain version on the same inputs, tolerance 0: fails
+    on any difference, else returns the largest |error| (0)."""
     from hevce_tpu_torch.ops import fused_eval
 
+    got = fused_eval.pipeline_sse(sz, qpd6, pred, blk)
+    torch.cuda.synchronize()
+    want = fused_eval.pipeline_sse_plain(sz, qpd6, pred, blk)
+    M, rows = pred.shape[-3], pred.numel() // (pred.shape[-3] * sz * sz)
+    worst = 0
+    for name, g, w in zip(("q", "recon", "sse"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"K1 {name} {where} sz={sz} M={M} rows={rows} qpd6={qpd6}:"
+                 f" {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        if err:
+            fail(f"K1 {name} differs from the plain version {where} at "
+                 f"sz={sz} M={M} rows={rows} qpd6={qpd6}: max |err| {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def k1_times(torch, sz, M, rows, pred, blk):
+    """card ms (profiler), call ms (CUDA events), the plain version's card
+    ms and the bound of one K1 call at qpd6=QPD6."""
+    from hevce_tpu_torch.ops import fused_eval
+
+    k1 = lambda: fused_eval.pipeline_sse(sz, QPD6, pred, blk)
+    plain = lambda: fused_eval.pipeline_sse_plain(sz, QPD6, pred, blk)
+    call_ms = cuda_ms(torch, k1, 50)
+    ms, plain_ms = card_ms(torch, k1, 20), card_ms(torch, plain, 5)
+    nbytes, ops = k1_cost(sz, M, rows)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"sz": sz, "M": M, "lanes": rows, "ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def phase_kernels(torch, dev, rng):
     max_err, checked = 0, 0
     for qpd6 in range(5):
         for sz, M in SHAPES:
             pred, blk = k1_inputs(torch, dev, rng, sz, M, LANES)
-            got = fused_eval.pipeline_sse(sz, qpd6, pred, blk)
-            torch.cuda.synchronize()
-            want = fused_eval.pipeline_sse_plain(sz, qpd6, pred, blk)
-            for name, g, w in zip(("q", "recon", "sse"), got, want):
-                if g.dtype != w.dtype or g.shape != w.shape:
-                    fail(f"K1 {name} sz={sz} M={M} qpd6={qpd6}: "
-                         f"{g.dtype}{tuple(g.shape)} vs {w.dtype}"
-                         f"{tuple(w.shape)}")
-                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    fail(f"K1 {name} differs from the plain version at "
-                         f"sz={sz} M={M} qpd6={qpd6}: max |err| {err}")
+            max_err = max(max_err, k1_compare(torch, sz, qpd6, pred, blk,
+                                              "at 288 lanes"))
             checked += 1
-
     shapes = []
     for sz, M in SHAPES:
         pred, blk = k1_inputs(torch, dev, rng, sz, M, LANES)
-        k1 = lambda: fused_eval.pipeline_sse(sz, QPD6, pred, blk)
-        plain = lambda: fused_eval.pipeline_sse_plain(sz, QPD6, pred, blk)
-        call_ms = cuda_ms(torch, k1, 50)
-        ms, plain_ms = card_ms(torch, k1, 20), card_ms(torch, plain, 5)
-        nbytes, ops = k1_cost(sz, M, LANES)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-        shapes.append({"sz": sz, "M": M, "lanes": LANES,
-                       "per_front": PER_FRONT.get((sz, M), 0),
-                       "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
-                       "bound_ms": 1e3 * max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes > t_ops
-                       else "operations"})
+        shapes.append(dict(k1_times(torch, sz, M, LANES, pred, blk),
+                           per_front=PER_FRONT.get((sz, M), 0)))
+
+    # the lockstep path's calls: 18 rows of 35 candidates (630: K1's last
+    # block of candidates is partial at sz 4 and 8), on real requests and
+    # K1's own recons feeding the next sub-TU
+    lock_checked, lock_shapes = 0, {}
+    for qpd6 in range(5):
+        for sz, pred, blk in k1_lockstep_calls(torch, dev, rng, qpd6):
+            if tuple(pred.shape) != (BATCH, 35, sz, sz):
+                fail(f"K1 lockstep call at sz={sz}: pred {tuple(pred.shape)}"
+                     f", expected ({BATCH}, 35, {sz}, {sz})")
+            max_err = max(max_err, k1_compare(torch, sz, qpd6, pred, blk,
+                                              "on lockstep requests"))
+            lock_checked += 1
+            if qpd6 == QPD6:
+                lock_shapes.setdefault(sz, (pred, blk))
+    lock = [dict(k1_times(torch, sz, 35, BATCH, pred, blk),
+                 per_ctu=K1_PER_CTU[sz])
+            for sz, (pred, blk) in sorted(lock_shapes.items())]
     emit({"phase": "kernels", "kernel": "fused_eval",
-          "checked": checked, "exact": True, "max_abs_err": max_err,
-          "library_ms": None,
+          "checked": checked, "lockstep_checked": lock_checked,
+          "exact": True, "max_abs_err": max_err, "library_ms": None,
           "library_note": "no single PyTorch call computes this function",
-          "shapes": shapes})
-    return max_err, shapes
+          "shapes": shapes, "lockstep_shapes": lock})
+    return max_err, shapes, lock
 
 
 # ---------------------------------------------------------------- kernel K2
@@ -258,15 +301,9 @@ def k2_shapes():
     return shapes
 
 
-def k2_block_inputs(torch, dev, rng, sz):
-    """K2's inputs as a lockstep event at sz hands them over: a batch of 18
-    requests cut from synthetic images (clamped neighbour reads), candidate
-    blocks from K1, op generation (ops/coef_ops), a fresh coder fork."""
-    from hevce_tpu_torch.bitstream import cabac as cb
-    from hevce_tpu_torch.models import cu_eval
-    from hevce_tpu_torch.ops import cabac_sim, coef_ops
-    from hevce_tpu_torch.parallel import lockstep
-
+def lock_requests(torch, dev, rng, sz):
+    """a lockstep event's requests at CU size sz: a batch of 18 CUs cut from
+    synthetic images (clamped neighbour reads, all borders present)."""
     tops, lefts, origs = [], [], []
     for b in range(BATCH):
         img = synth_image(rng, 96, 128, (1.5, 6.0, 30.0)[b % 3])
@@ -277,8 +314,46 @@ def k2_block_inputs(torch, dev, rng, sz):
         lefts.append(img[rows, x - 1])
         origs.append(img[y:y + sz, x:x + sz])
     to = lambda a: torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
-    top, left, orig = to(tops), to(lefts), to(origs)
     fl = torch.ones((BATCH, 4), dtype=torch.bool, device=dev)
+    return to(tops), to(lefts), fl, to(origs)
+
+
+def k1_lockstep_calls(torch, dev, rng, qpd6):
+    """K1's inputs as the lockstep path hands them over at qpd6: for each CU
+    size a batch of 18 requests through eval_2nx2n and (sz > 4) the dense
+    eval_tusplit, whose four sub-TU calls chain through K1's own recons.
+    Returns the [(sz, pred, blk)] of every K1 call, taken at its wrapper."""
+    from hevce_tpu_torch.models import cu_eval
+    from hevce_tpu_torch.ops import fused_eval
+
+    calls, k1 = [], fused_eval.pipeline_sse
+
+    def taken(sz, q, pred, blk):
+        calls.append((sz, pred, blk))
+        return k1(sz, q, pred, blk)
+
+    fused_eval.pipeline_sse = taken
+    try:
+        for sz in (4, 8, 16, 32):
+            req = lock_requests(torch, dev, rng, sz)
+            cu_eval.eval_2nx2n(sz, qpd6, *req)
+            if sz > 4:
+                cu_eval.eval_tusplit(sz, qpd6, *req)
+    finally:
+        fused_eval.pipeline_sse = k1
+    return calls
+
+
+def k2_block_inputs(torch, dev, rng, sz):
+    """K2's inputs as a lockstep event at sz hands them over: a batch of 18
+    requests (lock_requests), candidate blocks from K1, op generation
+    (ops/coef_ops), a fresh coder fork."""
+    from hevce_tpu_torch.bitstream import cabac as cb
+    from hevce_tpu_torch.models import cu_eval
+    from hevce_tpu_torch.ops import cabac_sim, coef_ops
+    from hevce_tpu_torch.parallel import lockstep
+
+    top, left, fl, orig = lock_requests(torch, dev, rng, sz)
     q1, _, _ = cu_eval.eval_2nx2n(sz, QPD6, top, left, fl, orig)
     if sz == 4:
         pm = torch.arange(35, dtype=torch.int32, device=dev).repeat(BATCH)
@@ -491,6 +566,37 @@ def phase_slice(torch, dev, rng, card):
 
 # ---------------------------------------------------------------- lockstep
 
+@contextlib.contextmanager
+def timed_parts(timer):
+    """time the parts of every lockstep event on the host, as the engine's
+    device_math phases do (the enqueue; nothing waits for the card):
+    eval{sz} (eval_2nx2n, eval_tusplit: K1 and the tensor ops around it),
+    opgen{sz} (op generation of the trial rates) and k2 (the K2 call)."""
+    from hevce_tpu_torch.models import cu_eval
+    from hevce_tpu_torch.ops import cabac_scan, coef_ops
+    from hevce_tpu_torch.parallel import lockstep
+
+    parts = [(cu_eval, "eval_2nx2n", "eval"), (cu_eval, "eval_tusplit", "eval"),
+             (coef_ops, "put_coef_trials", "opgen"),
+             (lockstep, "_node_trials", "opgen"),
+             (cabac_scan, "advance_rates", "k2")]
+    saved = [getattr(mod, name) for mod, name, _ in parts]
+
+    def timed(fn, part):
+        def call(*args, **kw):
+            with timer.phase(part if part == "k2" else f"{part}{args[0]}"):
+                return fn(*args, **kw)
+        return call
+
+    for (mod, name, part), fn in zip(parts, saved):
+        setattr(mod, name, timed(fn, part))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(parts, saved):
+            setattr(mod, name, fn)
+
+
 def phase_lockstep(torch, dev, rng, card):
     from hevce_tpu_torch.ops import cabac_scan, fused_eval
     from hevce_tpu_torch.parallel import lockstep
@@ -510,24 +616,28 @@ def phase_lockstep(torch, dev, rng, card):
     torch.cuda.synchronize()
 
     runs, k1_total, k2_total = [], 0, 0
-    for node_rates in (False, True):
-        timer = PhaseTimer()
+    for node_rates, pipeline in ((False, False), (True, False),
+                                 (False, True)):
+        halves = 2 if pipeline else 1
+        timer, parts = PhaseTimer(), PhaseTimer()
         fused_eval.LAUNCHES = 0
         cabac_scan.LAUNCHES = 0
         t0 = time.perf_counter()
-        streams, rcons = lockstep.encode_batch(imgs, QPD6,
-                                               node_rates=node_rates,
-                                               timer=timer, device=dev)
-        torch.cuda.synchronize()
+        with timed_parts(parts):
+            streams, rcons = lockstep.encode_batch(
+                imgs, QPD6, node_rates=node_rates, pipeline=pipeline,
+                timer=timer, device=dev)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+        # events are counted per engine: each half runs the whole schedule
         node = sum(n for k, n in timer.counts.items()
                    if k.startswith("device_math_node"))
         pu = timer.counts["device_math_pu"]
         fetch = timer.counts["winner_fetch"] // 2
-        if (node, pu) != (want_node, want_pu):
+        if (node, pu) != (halves * want_node, halves * want_pu):
             fail(f"lockstep ran {node} node / {pu} PU events, expected "
-                 f"{want_node} / {want_pu}")
+                 f"{halves} x {want_node} / {want_pu}")
         if k1 != 5 * node + pu:
             fail(f"K1 launched {k1} times on the lockstep path, expected "
                  f"5 x {node} node + {pu} PU events")
@@ -537,17 +647,29 @@ def phase_lockstep(torch, dev, rng, card):
                  + (f" + {node} node events" if node_rates else " events"))
         for i, (s, r) in enumerate(zip(streams, rcons)):
             if s != refs[i][0] or not np.array_equal(r, refs[i][1]):
-                fail(f"lockstep image {i} (node_rates={node_rates}) differs "
-                     f"from the native engine's encode")
+                fail(f"lockstep image {i} (node_rates={node_rates}, "
+                     f"pipeline={pipeline}) differs from the native "
+                     f"engine's encode")
             if not np.array_equal(native.decode_stream(s), r):
                 fail(f"lockstep stream {i} does not decode to its recon")
         k1_total += k1
         k2_total += k2
-        runs.append({"node_rates": node_rates, "wall_s": wall,
+        per_event = {}
+        for kind, n in [("pu", pu)] + [
+                (f"node{sz}", timer.counts[f"device_math_node{sz}"])
+                for sz in NODE_PER_CTU]:
+            sz = 4 if kind == "pu" else int(kind[4:])
+            per_event[kind] = {p: 1e3 * parts.totals[f"{p}{sz}"] / n
+                               for p in ("eval", "opgen")}
+        runs.append({"node_rates": node_rates, "pipeline": pipeline,
+                     "wall_s": wall,
                      "events": {"node": node, "pu": pu, "fetch": fetch},
-                     "events_per_s": (node + pu + fetch) / wall,
+                     "events_per_s": (node + pu + fetch) / halves / wall,
                      "k1_launches": k1, "k2_launches": k2,
                      "phases_s": dict(timer.totals),
+                     "host_ms_per_event": per_event,
+                     "k2_call_host_ms": 1e3 * parts.totals["k2"]
+                     / max(parts.counts["k2"], 1),
                      "byte_identical": len(streams)})
     # where one CTU's time goes: torch.profiler over a batch of one-CTU
     # crops with node rates on (wall timed inside the profiled region)
@@ -675,7 +797,7 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
     phase_build()
-    max_err, shapes = phase_kernels(torch, dev, rng)
+    max_err, shapes, k1_lock = phase_kernels(torch, dev, rng)
     k2_err, k2_shapes_ = phase_k2(torch, dev, rng)
     launches = phase_slice(torch, dev, rng, card)
     lock_k1, lock_k2 = phase_lockstep(torch, dev, rng, card)
@@ -686,8 +808,8 @@ def main():
 
     per_front = lambda key, keep=lambda s: True: sum(
         s["per_front"] * s[key] for s in shapes if keep(s))
-    per_ctu = lambda key, keep=lambda s: True: sum(
-        s["per_ctu"] * s[key] for s in k2_shapes_ if keep(s))
+    per_ctu = lambda key, keep=lambda s: True, rows=k2_shapes_: sum(
+        s["per_ctu"] * s[key] for s in rows if keep(s))
     t_bound = per_front("bound_ms")
     by_ops = per_front("bound_ms", lambda s: s["bound_by"] == "operations")
     emit({"kernels": [{
@@ -700,9 +822,13 @@ def main():
         "bound_by": "operations" if by_ops * 2 > t_bound else "bytes",
         "library_ms": None, "call_ms": per_front("call_ms"),
         "lockstep_launches": lock_k1,
+        "lockstep_ms_per_ctu": per_ctu("ms", rows=k1_lock),
+        "lockstep_bound_ms_per_ctu": per_ctu("bound_ms", rows=k1_lock),
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
-                 f"call_ms includes the host's enqueue"}, {
+                 f"call_ms includes the host's enqueue; lockstep_* per CTU "
+                 f"of the lockstep path at {BATCH} rows, launches over its "
+                 f"three runs"}, {
         "name": "cabac_scan", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/cabac_scan.cu",
         "replaces": "hevce_tpu/ops/cabac_pallas.py:190",
@@ -716,7 +842,8 @@ def main():
         "basis": f"one CTU of the lockstep path with node_rates on at a "
                  f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
                  f"21 node launches at 1260 lanes), on op strings of "
-                 f"synthetic blocks; launches count both lockstep runs"}]})
+                 f"synthetic blocks; launches count the three lockstep "
+                 f"runs"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

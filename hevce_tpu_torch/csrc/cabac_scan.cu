@@ -233,9 +233,9 @@ extern "C" {
 // nops: (lanes,) op counts; st_in / st_out: (7, lanes) int32 coder scalars
 // (range, low, nbits, outstanding, bufbyte, zrun, nbytes); ctx_in: (lanes,
 // P) int32 context palette, 1 <= P <= 256; ctx_out: (lanes, P) final
-// palette, or null to skip the write-back; tables: 512 int32 (the 64x4 LPS
-// range table, the LPS and the MPS next-state tables). Returns
-// cudaGetLastError().
+// palette, or null to skip the write-back; tables: int32, the first 512 of
+// which are read (the 64x4 LPS range table, the LPS and the MPS next-state
+// tables; ops/cabac_sim._tables). Returns cudaGetLastError().
 int hevce_k2_launch(const void* ops, int lanes, int L, const void* nops,
                     const void* st_in, const void* ctx_in, int P,
                     const void* tables, void* st_out, void* ctx_out,

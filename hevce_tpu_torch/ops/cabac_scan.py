@@ -15,10 +15,8 @@ import ctypes
 import pathlib
 import threading
 
-import numpy as np
 import torch
 
-from hevce_tpu_torch.bitstream import cabac as cb
 from hevce_tpu_torch.ops import cabac_sim as sim
 from hevce_tpu_torch.runtime import build as _build
 
@@ -30,7 +28,6 @@ LAUNCHES = 0          # kernel launches made by advance_rates (CUDA route)
 
 _lock = threading.Lock()
 _lib = None
-_tables = {}          # device -> the kernel's 512-entry int32 table tensor
 
 
 def scan_plain(state, ops, nops):
@@ -64,19 +61,6 @@ def _load():
                 + [ctypes.c_void_p] * 4)
             _lib = lib
         return _lib
-
-
-def _device_tables(device: torch.device):
-    """the LPS range table, then the LPS and MPS next-state tables, as one
-    int32 tensor on `device` (the kernel copies it into shared memory)."""
-    with _lock:
-        t = _tables.get(device)
-        if t is None:
-            flat = np.concatenate([cb.LPS_TABLE.reshape(-1),
-                                   cb.NEXT_STATE_LPS, cb.NEXT_STATE_MPS])
-            t = torch.as_tensor(flat.astype(np.int32), device=device)
-            _tables[device] = t
-        return t
 
 
 def _check(state, ops, nops):
@@ -125,7 +109,7 @@ def advance_rates(state, ops, nops, want_ctxs: bool = False):
     if lanes == 0:
         return out
     lib = _load()
-    tables = _device_tables(ops.device)
+    tables = sim._tables(ops.device)[0]
     with torch.cuda.device(ops.device):
         rc = lib.hevce_k2_launch(
             ops.data_ptr(), lanes, L, nops.data_ptr(), st_in.data_ptr(),

@@ -80,12 +80,17 @@ def bit_len(state):
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
-    """LPS range table (flat, index 4*state + q), the two next-state tables
-    and the single-shot renorm shift per (lps >> 3), int32 on `device`."""
+    """One int32 tensor on `device` holding the LPS range table (flat, index
+    4*state + q), the LPS and MPS next-state tables and the single-shot
+    renorm shift per (lps >> 3), then views of those four parts. Kernel K2
+    (ops/cabac_scan) takes the whole tensor and reads its first 512 entries,
+    the three coder tables."""
     renorm = [6] + [5 - (i.bit_length() - 1) for i in range(1, 32)]
-    return tuple(torch.as_tensor(np.asarray(a, np.int32), device=device)
-                 for a in (cb.LPS_TABLE.reshape(-1), cb.NEXT_STATE_LPS,
-                           cb.NEXT_STATE_MPS, renorm))
+    parts = (cb.LPS_TABLE.reshape(-1), cb.NEXT_STATE_LPS, cb.NEXT_STATE_MPS,
+             renorm)
+    flat = torch.as_tensor(np.concatenate(parts).astype(np.int32),
+                           device=device)
+    return (flat,) + tuple(flat.split([len(p) for p in parts]))
 
 
 def _emit_run(nbytes, zrun, byte, k):
@@ -137,7 +142,7 @@ def _step(state, op):
     rng, low, nbits = state["rng"], state["low"], state["nbits"]
     outstanding, bufbyte = state["outstanding"], state["bufbyte"]
     zrun, nbytes, ctxs = state["zrun"], state["nbytes"], state["ctxs"]
-    lps_tab, next_lps, next_mps, renorm = _tables(op.device)
+    _, lps_tab, next_lps, next_mps, renorm = _tables(op.device)
 
     kind = op & 3
     b = (op >> 10) & 1

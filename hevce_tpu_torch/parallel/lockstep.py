@@ -15,9 +15,13 @@ recon. A node event runs eval_2nx2n and the dense eval_tusplit (5 K1
 launches) and, with node_rates, the step-2/3 trial rates (one K2 launch);
 a PU event runs eval_2nx2n(4) and put_coef_rates (one K1, one K2 launch).
 
-With pipeline=True the batch is split into two halves driven by
-interleaved dispatch/complete, so one half's device work is queued while
-the other half's arbiters consume their results. Bit-exact either way.
+With pipeline=True the batch is split into two halves, each its own
+engine. Every round completes both halves, then dispatches both, so each
+half's C++ arbiters run on their worker threads while the Python thread
+serves the other half. Each half pays a whole event's launches, and the
+path is bound by the host's enqueue of them, so on the card the split is
+slower (PERF.md); it is kept for parity with the JAX package's API.
+Bit-exact either way.
 """
 import ctypes
 import os
@@ -341,8 +345,9 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     trial encodes. Bit-exact either way. Default: HEVCE_NODE_RATES=1, else
     off.
     pipeline: split the batch into two interleaved halves, so one half's
-    device work is queued while the other half's arbiters run. Bit-exact.
-    Default: HEVCE_PIPELINE=1, else off.
+    arbiters run while the other half's work is enqueued (slower on the
+    card, see the module docstring). Bit-exact. Default: HEVCE_PIPELINE=1,
+    else off.
     timer: optional utils.tracing.PhaseTimer accumulating host_arbiter /
     device_math_node{sz} / device_math_pu / writeback / winner_fetch /
     finish (device phases time the host's enqueue; the wait for the card
@@ -378,18 +383,17 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
             for part in parts:
                 runs.append(_Run(lib, part, qpd6, node_rates, dev, verify,
                                  timer))
-            # prime: every run dispatches its first event before any
-            # completes
-            for r in runs:
+            live = runs
+            for r in live:
                 if r.next() != KIND_DONE:
                     r.dispatch()
-            # interleave: complete + resupply one run (its workers then
-            # arbitrate) while the other run's device work is queued
-            while not all(r.done for r in runs):
-                for r in runs:
-                    if r.done:
-                        continue
+            # complete (and so resupply) every run before any waits for its
+            # next event: a run's workers arbitrate while the Python thread
+            # serves the other run
+            while live := [r for r in live if not r.done]:
+                for r in live:
                     r.complete()
+                for r in live:
                     if r.next() != KIND_DONE:
                         r.dispatch()
         with timer.phase("finish"):

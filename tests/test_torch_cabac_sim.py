@@ -76,6 +76,18 @@ def test_tables_equal_jax_package():
     assert sim.pack_op(sim.KIND_CTX, 141, 1) == jsim.pack_op(jsim.KIND_CTX, 141, 1)
 
 
+def test_k2_table_tensor_layout():
+    """K2 reads the LPS range table at 0, the LPS next-state table at 256
+    and the MPS one at 384 (csrc/cabac_scan.cu) of the tensor the plain
+    simulation indexes through views."""
+    flat, lps, next_lps, next_mps, _ = sim._tables(torch.device("cpu"))
+    want = np.concatenate([np.asarray(jcb.LPS_TABLE).reshape(-1),
+                           jcb.NEXT_STATE_LPS, jcb.NEXT_STATE_MPS])
+    np.testing.assert_array_equal(flat[:512].numpy(), want)
+    for view, at in ((lps, 0), (next_lps, 256), (next_mps, 384)):
+        assert view.data_ptr() == flat[at:].data_ptr()
+
+
 # ------------------------------------------------------------------ golden
 
 def _trace_ops(g, t):
