@@ -1,0 +1,246 @@
+"""Probe kernels P1-P3 and their plain PyTorch versions.
+
+The counterparts of the three Pallas probes of tools/pallas_probe.py, with
+the kernels written by hand in csrc/probes.cu:
+
+  P1 add_one   x += 1 on an (8, 128) int32 buffer: the cost of one launch
+  P2 int8_mm   int8 x int8 -> int32 product on the tensor cores (mma.sync)
+  P3 fused4    the 4x4 candidate eval (residual -> DST4 -> RDOQ -> dequant
+               -> inverse -> recon -> per-mode SSE) with its transform stages
+               as int8 mma.sync products of base-128 digits
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+LAUNCHES[name]; CPU tensors take the plain version. There is no fallback
+between the two: a CUDA tensor launches the kernel or raises. The probes
+are measurement tools (tools/cuda_probe.py); no encode path calls them.
+"""
+import ctypes
+import functools
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+from hevce_tpu_torch.ops import constants as C
+from hevce_tpu_torch.ops import quant, rdcost, xform
+from hevce_tpu_torch.runtime import build as _build
+
+SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "probes.cu"
+LIB_NAME = "libhevce_probes.so"
+SZ = 4                # P3's block size
+NN = SZ * SZ
+
+# kernel launches made by the wrappers (CUDA route); a captured CUDA graph
+# counts its launches once, at capture
+LAUNCHES = {"add_one": 0, "int8_mm": 0, "fused4": 0}
+
+_lock = threading.Lock()
+_lib = None
+_kron_cache = {}
+
+
+# ------------------------------------------------------ Kronecker operators
+
+@functools.lru_cache(maxsize=None)
+def kron_stage(sz: int):
+    """(sz^2, sz^2) int8 constants of the forward stages as operators on
+    row-major flattened blocks x: stage 1 out[(i,j)] = sum_k M[i,k] x[(k,j)]
+    (M @ x), stage 2 out[(i,j)] = sum_l t[(i,l)] M[j,l] (t @ M^T)."""
+    m = C.TRANSFORM_MAT[sz]
+    k1 = np.zeros((sz * sz, sz * sz), np.int64)
+    k2 = np.zeros((sz * sz, sz * sz), np.int64)
+    for i in range(sz):
+        for j in range(sz):
+            for k in range(sz):
+                k1[i * sz + j, k * sz + j] = m[i, k]
+                k2[i * sz + j, i * sz + k] = m[j, k]
+    return k1.astype(np.int8), k2.astype(np.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def kron_inv(sz: int):
+    """the inverse stages likewise: stage 1 out[(i,j)] = sum_k M[k,i]
+    x[(k,j)] (M^T @ x), stage 2 out[(i,j)] = sum_l t[(i,l)] M[l,j] (t @ M)."""
+    m = C.TRANSFORM_MAT[sz]
+    a = np.zeros((sz * sz, sz * sz), np.int64)
+    b = np.zeros((sz * sz, sz * sz), np.int64)
+    for i in range(sz):
+        for j in range(sz):
+            for k in range(sz):
+                a[i * sz + j, k * sz + j] = m[k, i]
+                b[i * sz + j, i * sz + k] = m[k, j]
+    return a.astype(np.int8), b.astype(np.int8)
+
+
+# ----------------------------------------------------------- plain versions
+
+def add_one_plain(x):
+    """P1's plain version: x + 1."""
+    return x + 1
+
+
+def int8_mm_plain(a, b):
+    """P2's plain version: (M, K) int8 @ (K, N) int8 -> (M, N) int32, exact
+    (torch.matmul takes no integer CUDA tensors)."""
+    return (a.long()[:, :, None] * b.long()[None]).sum(1).int()
+
+
+def fused4_plain(pred, blk, qpd6: int = 2):
+    """P3's plain version, the op chain of ops/xform + ops/quant in the
+    probe's layout: pred (rows, modes * 16) u8, blk (rows, 16) u8 ->
+    (q (rows, modes * 16) int32, sse (rows, modes) int32)."""
+    rows, w = pred.shape
+    p = pred.reshape(rows, w // NN, SZ, SZ)
+    b = blk.reshape(rows, 1, SZ, SZ)
+    resid = b.to(torch.int16) - p.to(torch.int16)
+    coef = xform.forward_transform(SZ, resid)
+    q = quant.quantize(SZ, qpd6, coef)
+    dq = quant.dequantize(SZ, qpd6, q)
+    r = xform.inverse_transform(SZ, dq)
+    recon = torch.clamp(r.to(torch.int32) + p, 0, 255)
+    return (q.to(torch.int32).reshape(rows, w), rdcost.block_sse(b, recon))
+
+
+# ------------------------------------------------------------------ kernels
+
+def build(force: bool = False):
+    """Compile csrc/probes.cu for sm_90a (once, or again with force=True;
+    see runtime/build). Returns (library path, compiler output, which holds
+    ptxas's register and shared-memory report)."""
+    return _build.build(SOURCE, LIB_NAME, [
+        _build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", str(SOURCE)], force)
+
+
+def imma_counts(path) -> dict:
+    """IMMA (integer tensor-core) instructions per kernel in the built
+    library's SASS, read with cuobjdump: {kernel symbol: count}."""
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "IMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.hevce_p1_add_one.restype = i32
+            lib.hevce_p1_add_one.argtypes = [vp, ctypes.c_longlong, vp]
+            lib.hevce_p2_int8_mm.restype = i32
+            lib.hevce_p2_int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+            lib.hevce_p3_fused4.restype = i32
+            lib.hevce_p3_fused4.argtypes = (
+                [vp, vp, vp, ctypes.c_longlong] + [i32] * 8
+                + [ctypes.POINTER(i32), vp, vp, vp])
+            _lib = lib
+        return _lib
+
+
+def _kron_device(device: torch.device):
+    """the four P3 stage matrices (fwd 1, fwd 2, inv 1, inv 2) as one
+    (4, 16, 16) int8 tensor on `device`, uploaded once."""
+    with _lock:
+        if device not in _kron_cache:
+            mats = np.stack(kron_stage(SZ) + kron_inv(SZ))
+            _kron_cache[device] = torch.from_numpy(mats).to(device)
+        return _kron_cache[device]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launched(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _on_cuda(name, *ts):
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{name} takes its tensors on one device")
+    if ts[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+                         f"{ts[0].device}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def add_one(x):
+    """P1: x += 1 in place (int32); returns x."""
+    if x.device.type == "cpu":
+        return x.copy_(add_one_plain(x))
+    _on_cuda("add_one", x)
+    if x.dtype != torch.int32:
+        raise TypeError(f"add_one takes int32, got {x.dtype}")
+    lib = _load()
+    _launched("add_one", lib.hevce_p1_add_one(x.data_ptr(), x.numel(),
+                                              _stream(x)))
+    return x
+
+
+def int8_mm(a, b):
+    """P2: (M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return int8_mm_plain(a, b)
+    _on_cuda("int8_mm", a, b)
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_mm takes int8, got {a.dtype}/{b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} do not "
+                         f"fit (M, K) @ (K, N)")
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    lib = _load()
+    _launched("int8_mm", lib.hevce_p2_int8_mm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, _stream(a)))
+    return out
+
+
+def fused4(pred, blk, qpd6: int = 2):
+    """P3: pred (rows, modes * 16) u8, blk (rows, 16) u8 -> (q (rows,
+    modes * 16) int32, sse (rows, modes) int32), equal to fused4_plain."""
+    if pred.device.type == "cpu" and blk.device.type == "cpu":
+        return fused4_plain(pred, blk, qpd6)
+    _on_cuda("fused4", pred, blk)
+    if pred.dtype != torch.uint8 or blk.dtype != torch.uint8:
+        raise TypeError(f"fused4 takes uint8, got {pred.dtype}/{blk.dtype}")
+    if (pred.dim() != 2 or blk.dim() != 2 or pred.shape[1] % NN
+            or tuple(blk.shape) != (pred.shape[0], NN)
+            or not 0 <= qpd6 <= 4):
+        raise ValueError(f"shapes pred {tuple(pred.shape)} / blk "
+                         f"{tuple(blk.shape)} / qpd6={qpd6} do not fit "
+                         f"(rows, modes * 16) / (rows, 16) / 0-4")
+    rows, w = pred.shape
+    modes = w // NN
+    q = torch.empty((rows, w), dtype=torch.int32, device=pred.device)
+    sse = torch.empty((rows, modes), dtype=torch.int32, device=pred.device)
+    if modes == 0:
+        return q, sse
+    lib = _load()
+    kron = _kron_device(pred.device)
+    lvl = (ctypes.c_int * 6)(*(int(v) for v in C.LEVEL_RATE_TABLE[:6]))
+    _launched("fused4", lib.hevce_p3_fused4(
+        pred.data_ptr(), blk.data_ptr(), kron.data_ptr(), rows * modes, modes,
+        int(C.FWD_SHIFT_A[SZ]), int(C.QUANT_DIST_SHIFT[SZ]),
+        int(C.QUANT_LEVEL_SHIFT[SZ]), int(C.DEQUANT_SHIFT[SZ]), qpd6,
+        int(C.RDCOST_WEIGHT_DIST[qpd6]), int(C.RDCOST_WEIGHT_BITS[qpd6]), lvl,
+        q.data_ptr(), sse.data_ptr(), _stream(pred)))
+    return q, sse

@@ -1,7 +1,12 @@
-"""Lightweight wall-clock phase timer for the encode path."""
+"""Lightweight wall-clock phase timer for the encode path, and a device
+trace through torch.profiler."""
 import contextlib
+import pathlib
 import time
 from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 class PhaseTimer:
@@ -25,3 +30,22 @@ class PhaseTimer:
         lines = [f"{n:24s} {t:8.3f}s {100 * t / total:5.1f}%  ({self.counts[n]}x)"
                  for n, t in sorted(self.totals.items(), key=lambda kv: -kv[1])]
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir):
+    """Trace the enclosed work with torch.profiler (CPU activity, and CUDA
+    where a card is present) and write a Chrome trace (trace.json, for
+    chrome://tracing or Perfetto) into `logdir`. Yields the profiler, whose
+    key_averages() sum the time by operator and kernel once the block ends.
+    The counterpart of hevce_tpu/utils/tracing.device_trace."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out / "trace.json"))

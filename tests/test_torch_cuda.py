@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from hevce_tpu_torch.models import wavefront as wf
-from hevce_tpu_torch.ops import cabac_scan, cabac_sim, coef_ops, fused_eval
+from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, coef_ops, fused_eval,
+                                 probes)
 from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
+from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
+from hevce_tpu_torch.utils.imageio import write_pgm
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
@@ -23,8 +26,8 @@ SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with "
-                    "no CPU mode")
+        pytest.skip("needs a CUDA device: K1, K2 and P1-P3 are CUDA kernels "
+                    "with no CPU mode")
     return torch.device("cuda")
 
 
@@ -152,3 +155,116 @@ def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
         s_ref, r_ref = native.encode_image_native(im, 2)
         assert s == s_ref
         assert np.array_equal(r, r_ref)
+
+
+# ------------------------------------------------------------ probes P1-P3
+
+@pytest.mark.cuda
+def test_p1_add_one_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-2**30, 2**30, (8, 128))
+                         .astype(np.int32)).to(cuda_device)
+    want = probes.add_one_plain(x)
+    n0 = probes.LAUNCHES["add_one"]
+    assert probes.add_one(x) is x
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["add_one"] == n0 + 1
+    assert torch.equal(x, want)
+
+
+@pytest.mark.cuda
+def test_p1_in_a_captured_cuda_graph(cuda_device):
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda_device)
+    probes.add_one(x)                      # load the library before capture
+    n0 = probes.LAUNCHES["add_one"]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(10):
+            probes.add_one(x)
+    assert probes.LAUNCHES["add_one"] == n0 + 10       # captures, not replays
+    x.zero_()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["add_one"] == n0 + 10
+    assert bool((x == 20).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,fill", [(512, 64, 64, None), (512, 64, 64, -128),
+                                        (100, 48, 24, None), (16, 16, 8, 127),
+                                        (130, 160, 72, None)])
+def test_p2_int8_mm_matches_plain_on_card(cuda_device, M, K, N, fill):
+    rng = np.random.default_rng(M + K + N)
+    if fill is None:
+        a = rng.integers(-128, 128, (M, K)).astype(np.int8)
+        b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    else:
+        a, b = np.full((M, K), fill, np.int8), np.full((K, N), -128, np.int8)
+    want = torch.from_numpy(a.astype(np.int32) @ b.astype(np.int32))
+    a, b = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    n0 = probes.LAUNCHES["int8_mm"]
+    got = probes.int8_mm(a, b)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["int8_mm"] == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, probes.int8_mm_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpd6", range(5))
+def test_p3_fused4_matches_plain_and_k1_on_card(cuda_device, qpd6):
+    rng = np.random.default_rng(20 + qpd6)
+    for rows, modes in ((512, 35), (37, 35), (9, 4)):    # ragged last tiles
+        pred, blk = (torch.from_numpy(a).to(cuda_device)
+                     for a in cuda_probe.p3_inputs(rng, rows, modes))
+        n0 = probes.LAUNCHES["fused4"]
+        got = probes.fused4(pred, blk, qpd6)
+        torch.cuda.synchronize()
+        assert probes.LAUNCHES["fused4"] == n0 + 1
+        for want in (probes.fused4_plain(pred, blk, qpd6),
+                     cuda_probe.via_k1(pred, blk, qpd6)):
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (rows, modes)
+
+
+@pytest.mark.cuda
+def test_p2_and_p3_issue_int8_tensor_core_instructions(cuda_device):
+    counts = probes.imma_counts(probes.build()[0])
+    for kern in ("p2_int8_mm", "p3_fused4"):
+        assert any(kern in fn and n > 0 for fn, n in counts.items()), counts
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_what_they_do_not_take(cuda_device):
+    a = torch.zeros((32, 16), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        probes.int8_mm(a.to(torch.int32), a.T.contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.int8_mm(a, a.T)
+    pred = torch.zeros((4, 35 * 16), dtype=torch.uint8, device=cuda_device)
+    blk = torch.zeros((4, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        probes.fused4(pred[:, :-1].contiguous(), blk)
+    with pytest.raises(ValueError):
+        probes.fused4(pred, blk.cpu())
+    with pytest.raises(TypeError):
+        probes.add_one(pred)
+
+
+@pytest.mark.cuda
+def test_measurement_tools_on_card(cuda_device, tmp_path):
+    lines = []
+    res = cuda_probe.run(cuda_device, out=lines.append)
+    assert res["p1"]["add_one"]["graph_us"] > 0 and res["p2"]["exact"]
+    assert sum("EXACT" in ln for ln in lines) == 2
+    assert not any("MISMATCH" in ln for ln in lines)
+    assert bench_fused.main(["4,35", "--n1", "2", "--n2", "6"],
+                            out=lines.append) == 0
+    img = np.random.default_rng(3).integers(0, 256, (64, 96)).astype(np.uint8)
+    write_pgm(tmp_path / "a.pgm", img)
+    assert profile_front.main([str(tmp_path / "a.pgm"), "--fronts", "1",
+                               "--logdir", str(tmp_path / "trace")],
+                              out=lines.append) == 0
+    assert (tmp_path / "trace" / "trace.json").exists()
+    assert any(ln.startswith("card time:") for ln in lines)

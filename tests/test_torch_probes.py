@@ -1,0 +1,214 @@
+"""The probe kernels' plain versions and the port's measurement tools, on the
+CPU, against the JAX package and tools/pallas_probe.py (tolerance 0).
+
+The kernels themselves (csrc/probes.cu) run only on a card: their checks
+against these plain versions are in tests/test_torch_cuda.py.
+"""
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hevce_tpu.ops import quant as jquant
+from hevce_tpu.ops import xform as jxform
+from hevce_tpu.utils import imageio as jimageio
+from hevce_tpu_torch.ops import constants as C
+from hevce_tpu_torch.ops import probes
+from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
+from hevce_tpu_torch.utils import imageio
+from hevce_tpu_torch.utils.tracing import device_trace
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _pallas_probe():
+    spec = importlib.util.spec_from_file_location(
+        "pallas_probe", ROOT / "tools" / "pallas_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# --------------------------------------------------------------------- P1
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_p1_plain_gives_n_after_n_steps(n):
+    x = torch.zeros(cuda_probe.P1_SHAPE, dtype=torch.int32)
+    for _ in range(n):
+        assert probes.add_one(x) is x
+    assert bool((x == n).all())
+    assert probes.LAUNCHES["add_one"] == 0            # the CPU runs no kernel
+
+
+# --------------------------------------------------------------------- P2
+
+@pytest.mark.parametrize("case", ["random", "all -128"])
+def test_p2_plain_equals_the_probes_reference(case):
+    inputs = dict((c, (a, b)) for c, a, b in
+                  cuda_probe.p2_inputs(np.random.default_rng(0)))
+    a, b = inputs[case]
+    assert a.shape == (512, 64) and b.shape == (64, 64)
+    want = a.astype(np.int32) @ b.astype(np.int32)      # pallas_probe.py:86
+    got = probes.int8_mm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        probes.int8_mm_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        want)
+
+
+# --------------------------------------------------------------------- P3
+
+@pytest.mark.parametrize("which", ["stage", "inv"])
+def test_kron_matrices_equal_pallas_probe(which):
+    ref = getattr(_pallas_probe(), f"_kron_{which}")(4)
+    got = getattr(probes, f"kron_{which}")(4)
+    for g, r in zip(got, ref):
+        assert g.dtype == np.int8 and g.shape == (16, 16)
+        np.testing.assert_array_equal(g, r)
+
+
+def _digits(x, ndig):
+    """base-128 digits of int64 x: low digits in [0, 127], the top signed."""
+    return [(x >> (7 * k)) if k == ndig - 1 else (x >> (7 * k)) & 127
+            for k in range(ndig)]
+
+
+def _kernel_product(x, kmat, ndig):
+    """x (n, 16) @ kmat^T as csrc/probes.cu computes it: int8 digit products
+    recombined by Horner's rule in an int32 accumulator."""
+    acc = np.zeros((x.shape[0], 16), np.int64)
+    for d in reversed(_digits(x, ndig)):
+        assert d.min() >= -128 and d.max() <= 127        # each digit is s8
+        acc = acc * 128 + d @ kmat.astype(np.int64).T
+        assert np.abs(acc).max() < 2**31                 # int32 accumulator
+    return acc
+
+
+def _rnd(x, s):
+    return (x + (1 << s >> 1)) >> s
+
+
+def _clip16(x):
+    return np.clip(x, -32768, 32767)
+
+
+def test_digit_split_kron_formulation_equals_direct_transform():
+    rng = np.random.default_rng(4)
+    n = 2000
+    resid = rng.integers(-255, 256, (n, 16))
+    edges = lambda lo, hi: [[hi] * 16, [lo] * 16, [lo] * 8 + [hi] * 8,
+                            [hi, lo] * 8]
+    resid[:4] = edges(-255, 255)
+    dq = rng.integers(-32768, 32768, (n, 16))
+    dq[:4] = edges(-32768, 32767)
+    k1, k2 = probes.kron_stage(4)
+    ik1, ik2 = probes.kron_inv(4)
+    a = int(C.FWD_SHIFT_A[4])
+    tmp = _rnd(_kernel_product(resid, k1, 2), a)
+    coef = _rnd(_kernel_product(tmp, k2, 3), a + 7)
+    want = jxform.forward_transform(4, jnp.asarray(
+        resid.reshape(n, 4, 4).astype(np.int32)))
+    np.testing.assert_array_equal(coef.reshape(n, 4, 4), np.asarray(want))
+    t1 = _clip16(_rnd(_kernel_product(dq, ik1, 3), 7))
+    rec = _clip16(_rnd(_kernel_product(t1, ik2, 3), 12))
+    want = jxform.inverse_transform(4, jnp.asarray(
+        dq.reshape(n, 4, 4).astype(np.int32)))
+    np.testing.assert_array_equal(rec.reshape(n, 4, 4), np.asarray(want))
+    # the matrices act from the left on flattened blocks: x_row @ K^T. The
+    # Pallas probe's mm(x, kron(eye, K)) takes x_row @ K, which is M^T X:
+    # the transposed transform, so the kernel follows the op chain instead
+    m = C.TRANSFORM_MAT[4].astype(np.int64)
+    x = resid.reshape(n, 4, 4)
+    np.testing.assert_array_equal(
+        (resid @ k1.astype(np.int64).T).reshape(n, 4, 4), m @ x)
+    np.testing.assert_array_equal(
+        (resid @ k1.astype(np.int64)).reshape(n, 4, 4), m.T @ x)
+
+
+@pytest.mark.parametrize("qpd6", [0, 2, 4])
+def test_p3_plain_equals_jax_op_chain(qpd6):
+    pred, blk = cuda_probe.p3_inputs(np.random.default_rng(qpd6), rows=64)
+    q, sse = probes.fused4(torch.from_numpy(pred), torch.from_numpy(blk),
+                           qpd6)
+    # the probe's own op chain, tools/pallas_probe.py:279-288
+    p4 = pred.reshape(64, 35, 4, 4)
+    b4 = blk.reshape(64, 4, 4)
+    resid = b4[:, None].astype(np.int16) - p4.astype(np.int16)
+    coef = jxform.forward_transform(4, jnp.asarray(resid))
+    q_want = np.asarray(jquant.quantize(4, qpd6, coef)).reshape(64, 560)
+    dq = jquant.dequantize(4, qpd6, jnp.asarray(q_want.reshape(64, 35, 4, 4)))
+    rinv = jxform.inverse_transform(4, dq)
+    recon = np.clip(np.asarray(rinv).astype(np.int64) + p4, 0, 255)
+    sse_want = ((b4[:, None].astype(np.int64) - recon) ** 2).sum((-1, -2))
+    assert q.dtype == torch.int32 and sse.dtype == torch.int32
+    np.testing.assert_array_equal(q.numpy(), q_want)
+    np.testing.assert_array_equal(sse.numpy(), sse_want)
+    assert (q_want == 0).any() and (q_want != 0).any()
+    k1q, k1sse = cuda_probe.via_k1(torch.from_numpy(pred),
+                                   torch.from_numpy(blk), qpd6)
+    assert torch.equal(k1q, q) and torch.equal(k1sse, sse)
+
+
+# ------------------------------------------------------------------ tools
+
+def test_cuda_probe_on_cpu_prints_exact_lines(capsys):
+    assert cuda_probe.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [ln[:2] for ln in out[1:]] == ["P1", "P1", "P2", "P3", "P3"]
+    assert "EXACT" in out[3] and out[4].count("EXACT") == 4
+    assert not any("MISMATCH" in ln for ln in out)
+
+
+def test_cuda_probe_without_a_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cuda_probe.main([])
+
+
+def test_device_trace_records_on_cpu(tmp_path):
+    with device_trace(tmp_path / "t") as prof:
+        torch.ones(64, dtype=torch.int32).cumsum(0)
+    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
+    assert any("cumsum" in e.key for e in prof.key_averages())
+
+
+def test_profile_front_on_one_32x32_image_cpu(tmp_path):
+    img = np.random.default_rng(6).integers(0, 256, (32, 32)).astype(np.uint8)
+    imageio.write_pgm(tmp_path / "a.pgm", img)
+    lines = []
+    assert profile_front.main([str(tmp_path / "a.pgm"), "--device", "cpu",
+                               "--top", "5", "--logdir",
+                               str(tmp_path / "trace")], out=lines.append) == 0
+    assert lines[0].startswith("batch: B=1 32x32 qpd6=2 on cpu: 1 front")
+    assert lines[1].startswith("host (CPU) operator time")
+    assert len(lines) == 3 + 5
+    assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_bench_fused_on_cpu():
+    lines = []
+    assert bench_fused.main(["4,35", "--n1", "1", "--n2", "2", "--device",
+                             "cpu"], out=lines.append) == 0
+    assert lines[0] == ("sz=4 M=35 lanes=288 on cpu: exactness q=OK recon=OK "
+                        "sse=OK")
+    assert len(lines) == 3 and "host (CPU) clock" in lines[1]
+
+
+def test_pgm_io_matches_jax_package(tmp_path):
+    img = np.random.default_rng(7).integers(0, 256, (13, 21)).astype(np.uint8)
+    imageio.write_pgm(tmp_path / "a.pgm", img)
+    jimageio.write_pgm(tmp_path / "b.pgm", img)
+    assert (tmp_path / "a.pgm").read_bytes() == (tmp_path / "b.pgm").read_bytes()
+    (tmp_path / "c.pgm").write_bytes(b"P5 # comment\n21\n13 255\n" + img.tobytes())
+    for p in ("a.pgm", "c.pgm"):
+        np.testing.assert_array_equal(imageio.read_pgm(tmp_path / p), img)
+        np.testing.assert_array_equal(imageio.read_pgm(tmp_path / p),
+                                      jimageio.read_pgm(tmp_path / p))
