@@ -5,26 +5,30 @@ Phases, each printed as one JSON line:
 
   build     compile the native host library (g++), kernels K1 and K2 and
             the probe kernels P1-P3 (nvcc) from the sources in this
-            checkout, all at once; seconds for each, ptxas's report, and
-            the IMMA (int8 tensor-core) instructions in each probe kernel's
-            SASS (P2 and P3 must have some).
+            checkout, all at once; seconds for each, ptxas's report
+            (registers and spills of every instantiation), and the IMMA
+            (int8 tensor-core) instructions in each kernel's SASS (P2, P3
+            and K1's sz 8, 16 and 32 instantiations must have some).
   probes    (run second, on a generator of its own, so the phases below
             see the inputs they saw without it) the probe tool as a user
             runs it (tools/cuda_probe: P1's us per launch eager and as a
             CUDA graph, P2 and P3 EXACT, P3's us per eval beside K1's);
             every probe kernel must launch there, and none on the encode
             paths below. Then P1-P3 against their plain versions on the
-            card (tolerance 0; P2 also at extreme and ragged operands; P3
-            at qpd6 0-4 and against K1 at (4, 35)), and each probe's card,
-            call, plain and library (x.add_(1), torch._int_mm) times beside
-            its bound.
+            card (tolerance 0; P2 also at extreme and ragged operands, K
+            not a multiple of 16 among them; P3 at qpd6 0-4 and against K1
+            at (4, 35)), and each probe's card, call, plain and library
+            (x.add_(1), torch._int_mm) times beside its bound; P2 also at
+            (4096, 4096, 4096) beside torch._int_mm (from the tool).
   kernels   K1 against its plain PyTorch version on the card for the 11
             production (sz, M) shapes x qpd6 0-4 at 288 lanes (the main
             path's lane count for a 768x512 batch of 18): q, recon and sse
             must be equal (tolerance 0). Then per-shape card times of K1
             and of the plain version (torch.profiler), K1's time per call
             with the host's enqueue (CUDA events), and the least time the
-            card could take.
+            card could take, two ways: bound_ms with the transforms as
+            int32 multiply-adds, tc_bound_ms with them as int8 tensor-core
+            digit products beside the int32 epilogue.
             K1 again at the lockstep path's calls: 18 rows of 35 candidates
             at sz 4 / 8 / 16 / 32 x qpd6 0-4, the inputs taken from
             eval_2nx2n and the dense eval_tusplit on real requests (K1's
@@ -145,16 +149,22 @@ def phase_build():
         fail("build: " + " | ".join(errs))
     ptxas = [ln.strip() for k in ("fused_eval", "cabac_scan", "probes")
              for ln in res[k][1].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    # P2 and P3 must issue int8 tensor-core instructions (IMMA in the SASS)
+             if any(w in ln for w in ("registers", "spill", "Compiling entry"))]
+    # P2, P3 and K1's transform stages at sz >= 8 must issue int8
+    # tensor-core instructions (IMMA in the SASS)
     imma = probes.imma_counts(probes.build()[0])
     for kern in ("p2_int8_mm", "p3_fused4"):
         if not any(kern in fn and n > 0 for fn, n in imma.items()):
             fail(f"build: {kern} has no IMMA instruction in its SASS: {imma}")
+    k1_imma = fused_eval.imma_by_size(
+        probes.imma_counts(fused_eval.build()[0]))
+    if not all(k1_imma[sz] for sz in (8, 16, 32)):
+        fail(f"build: K1 at sz 8 / 16 / 32 needs IMMA instructions in its "
+             f"SASS: {k1_imma}")
     emit({"phase": "build", "host_lib_s": res["host"][0],
           "fused_eval_s": res["fused_eval"][0],
           "cabac_scan_s": res["cabac_scan"][0], "probes_s": res["probes"][0],
-          "ptxas": ptxas, "imma": imma})
+          "ptxas": ptxas, "imma": imma, "k1_imma_by_sz": k1_imma})
 
 
 # ----------------------------------------------------------------- kernels
@@ -185,6 +195,17 @@ def k1_cost(sz, M, lanes):
     nbytes = n * nn + lanes * nn + n * nn * 2 + n * nn + n * 4
     ops = n * 4 * nn * sz * 2
     return nbytes, ops
+
+
+def k1_tc_bound(sz, M, lanes):
+    """(bound ms, bound_by) of one K1 call with its transforms as int8
+    tensor-core products: the base-128 digit products of the four stages,
+    the int32 epilogue and the bytes, whichever is largest."""
+    n = lanes * M
+    nbytes, _ = k1_cost(sz, M, lanes)
+    return bound(nbytes, [
+        (n * K1_DIGIT_PRODUCTS * sz ** 3 * 2, INT8_TC_OPS_PER_S),
+        (n * sz * sz * K1_INT32_OPS_PER_COEF, INT32_OPS_PER_S)])
 
 
 def k1_compare(torch, sz, qpd6, pred, blk, where):
@@ -221,9 +242,11 @@ def k1_times(torch, sz, M, rows, pred, blk):
     ms, plain_ms = timing.card_ms(k1, 20), timing.card_ms(plain, 5)
     nbytes, ops = k1_cost(sz, M, rows)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    tc_ms, tc_by = k1_tc_bound(sz, M, rows)
     return {"sz": sz, "M": M, "lanes": rows, "ms": ms, "plain_ms": plain_ms,
             "call_ms": call_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "tc_bound_ms": tc_ms, "tc_bound_by": tc_by}
 
 
 def phase_kernels(torch, dev, rng):
@@ -746,10 +769,15 @@ def phase_identity(dev):
 # each a 16 x 16 product per block. P3's int32 operations per coefficient
 # outside the products: residual 1, four rounding shifts 8, two clip16 4,
 # level0 8, three RD costs 3 x 15, two selections 4, sign 2, the kill 3,
-# dequant 3, recon 3, SSE 3.
+# dequant 3, recon 3, SSE 3. K1's tensor-core floor counts the same: its
+# stages' digits (2, 3, 3, 3) in sz x sz x sz products, and 84 int32
+# operations per coefficient besides (the digit split's shift and mask per
+# digit come on top, so the floor stays a floor).
 INT8_TC_OPS_PER_S = 1979e12
 P3_DIGIT_PRODUCTS = 2 + 3 + 3 + 3
 P3_INT32_OPS_PER_COEF = 84
+K1_DIGIT_PRODUCTS = P3_DIGIT_PRODUCTS
+K1_INT32_OPS_PER_COEF = P3_INT32_OPS_PER_COEF
 
 
 def bound(nbytes, ops):
@@ -807,7 +835,10 @@ def phase_probes(torch, dev, rng):
         ("127 x -128", i8(127, (M, K)), i8(-128, (K, N))),
         ("ragged (100, 48, 24)",
          rng.integers(-128, 128, (100, 48)).astype(np.int8),
-         rng.integers(-128, 128, (48, 24)).astype(np.int8))]
+         rng.integers(-128, 128, (48, 24)).astype(np.int8)),
+        ("ragged (130, 33, 70)",
+         rng.integers(-128, 128, (130, 33)).astype(np.int8),
+         rng.integers(-128, 128, (33, 70)).astype(np.int8))]
     for case, a, b in cases:
         a, b = to(a), to(b)
         held("int8_mm", f"from its plain version ({case})",
@@ -850,6 +881,16 @@ def phase_probes(torch, dev, rng):
     p4, b4 = pred.view(-1, 35, 4, 4), blk.view(-1, 4, 4)    # K1, same inputs
     rows["fused4"]["k1_ms"] = timing.card_ms(
         lambda: fused_eval.pipeline_sse(4, QPD6, p4, b4), 50)
+    # P2 at the busy shape, timed by the tool: tensor cores or bytes
+    big = res["p2"]["large"]
+    Ml, Kl, Nl = big["shape"]
+    b_ms, by = bound(Ml * Kl + Kl * Nl + 4 * Ml * Nl,
+                     [(2 * Ml * Kl * Nl, INT8_TC_OPS_PER_S)])
+    rows["int8_mm"]["large"] = {
+        "shape": big["shape"], "exact": big["exact"],
+        "ms": big["card_us"] / 1e3, "library_ms": big["library_card_us"] / 1e3,
+        "bound_ms": b_ms, "bound_by": by,
+        "top_per_s": 2 * Ml * Kl * Nl / (big["card_us"] / 1e6) / 1e12}
     emit({"phase": "probes", "tool": lines, "tool_s": tool_s,
           "launches": launches, "checked": checked, "exact": True,
           "p1_us_per_launch": res["p1"],
@@ -921,6 +962,7 @@ def main():
         s["per_ctu"] * s[key] for s in rows if keep(s))
     t_bound = per_front("bound_ms")
     by_ops = per_front("bound_ms", lambda s: s["bound_by"] == "operations")
+    tc_bound = per_front("tc_bound_ms")
     emit({"kernels": [{
         "name": "fused_eval", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/fused_eval.cu",
@@ -930,12 +972,19 @@ def main():
         "bound_ms": t_bound,
         "bound_by": "operations" if by_ops * 2 > t_bound else "bytes",
         "library_ms": None, "call_ms": per_front("call_ms"),
+        "tc_bound_ms": tc_bound,
+        "tc_bound_by": "operations" if per_front(
+            "tc_bound_ms", lambda s: s["tc_bound_by"] == "operations") * 2
+        > tc_bound else "bytes",
         "lockstep_launches": lock_k1,
         "lockstep_ms_per_ctu": per_ctu("ms", rows=k1_lock),
         "lockstep_bound_ms_per_ctu": per_ctu("bound_ms", rows=k1_lock),
+        "lockstep_tc_bound_ms_per_ctu": per_ctu("tc_bound_ms", rows=k1_lock),
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
-                 f"call_ms includes the host's enqueue; lockstep_* per CTU "
+                 f"call_ms includes the host's enqueue; bound_ms with the "
+                 f"transforms as int32 multiply-adds, tc_bound_ms as int8 "
+                 f"tensor-core digit products; lockstep_* per CTU "
                  f"of the lockstep path at {BATCH} rows, launches over its "
                  f"three runs"}, {
         "name": "cabac_scan", "route": "cuda",

@@ -12,15 +12,26 @@
 //   measures. One thread per element, 256 threads a block.
 //
 // P2 int8_mm (replaces probe_int8_matmul, tools/pallas_probe.py:76).
-//   out = a @ b, a (M, K) int8, b (K, N) int8 -> (M, N) int32, exact. At the
+//   out = a @ b, a (M, K) int8, b (K, N) int8 -> (M, N) int32, exact (no
+//   .satfinite: |sum| <= K * 2^14 stays inside int32 for K < 2^17). At the
 //   probe's shape (512, 64) x (64, 64) it moves 167,936 B (50 ns) for 4.2 M
 //   operations (2 ns on the int8 tensor cores): bound by bytes, and at this
-//   size by the launch. Design: the product runs on the tensor cores with
-//   mma.sync m16n8k16 s8 x s8 -> s32 (no .satfinite: |sum| <= K * 2^14 stays
-//   far inside int32). A block of 4 warps stages a 64-row tile of A
-//   row-major and a 64-column tile of B transposed ("col") in shared memory,
-//   64 of K at a time, zero-filled past M, N and K; each warp owns 16 rows
-//   and all 64 columns (8 accumulator fragments).
+//   size by the launch and by how many SMs take part. At (4096, 4096, 4096)
+//   it is bound by the tensor cores (1.4e11 operations, 69 us at 1,979
+//   TOP/s; 100 MB, 30 us). Design: mma.sync m16n8k16 s8 x s8 -> s32
+//   (mma_s8.cuh) on tiles staged in shared memory, 64 of K at a time,
+//   double-buffered: the next tile's loads are in flight in registers while
+//   the warps multiply the current one. A is staged with 16-byte loads into
+//   rows of 80 bytes (20 words, so the fragment loads hit 32 banks). B is
+//   K-major for the "col" operand: each thread loads 16 k-rows x 4 columns
+//   as 4-byte words, transposes them 4x4 bytes at a time with __byte_perm,
+//   and stores each column's 16 bytes as one 16-byte word (no byte scatter).
+//   Edges are zero-filled past M, N and K; where K % 16 (A) or N % 4 (B) is
+//   not 0, or a pointer is not aligned, those loads go byte by byte. Each
+//   thread's accumulator holds two adjacent columns, stored as one int2.
+//   Two tilings: 128 x 128 on 8 warps (64 x 32 each) once that fills the
+//   card's 132 SMs; else 32 x 16 on 2 warps, so the probe's 512 x 64 output
+//   runs as 64 blocks, not 8.
 //
 // P3 fused4 (replaces probe_fused_pipeline, tools/pallas_probe.py:120).
 //   The 4x4 candidate eval of the probe, held to its op chain (pallas_probe
@@ -54,6 +65,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_s8.cuh"
+
 namespace {
 
 constexpr int kI32Max = 0x7FFFFFFF;
@@ -65,79 +78,174 @@ __global__ void p1_add_one(int* __restrict__ x, long long n) {
   if (i < n) x[i] += 1;
 }
 
-// ------------------------------------------------- int8 mma fragments
-//
-// D = A * B + D on one warp: A 16x16 s8 (row), B 16x8 s8 (col), D 16x8 s32.
-// Fragments (PTX ISA, mma.m16n8k16 with .s8 operands), g = lane >> 2,
-// t = lane & 3, four bytes packed in a register with the lowest k lowest:
-//   a[0] = A[g][4t .. 4t+3]        a[1] = A[g+8][4t .. 4t+3]
-//   b    = B[4t .. 4t+3][g]        (= row g of B^T, four bytes)
-//   d[0], d[1] = D[g][2t], D[g][2t+1]    d[2], d[3] = D[g+8][2t], D[g+8][2t+1]
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[2],
-                                       uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // ------------------------------------------------------------------ P2
 
-constexpr int P2_TILE = 64;           // rows, columns and depth of a tile
-constexpr int P2_STRIDE = P2_TILE + 16;  // bytes a shared row: 20 words,
-                                         // so a fragment load hits 32 banks
+constexpr int P2_BK = 64;                // depth of a staged tile, bytes
+constexpr int P2_STRIDE = P2_BK + 16;    // bytes a shared row: 20 words, so
+                                         // a fragment load hits 32 banks
 
-__global__ void __launch_bounds__(128)
+// a block tile of BM x BN outputs on WM x WN warps, each warp TM x TN
+// mma tiles (16 x 8 each)
+template <int BM, int BN, int WM, int WN>
+struct P2Cfg {
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int TM = BM / WM / 16, TN = BN / WN / 8;
+  static constexpr int A_TASKS = BM * (P2_BK / 16) / THREADS;  // 16 B each
+  static constexpr int B_TASKS = (P2_BK / 16) * (BN / 4);      // 16 x 4 B
+  static_assert(A_TASKS * THREADS == BM * (P2_BK / 16), "A tasks");
+  static_assert(B_TASKS <= THREADS, "B tasks");
+};
+
+// 16 bytes of row-major src (rows x K) at (r, k .. k+15), zero past the
+// edges; vec: K % 16 == 0 and src 16-byte aligned, so a chunk is all in or
+// all out and one 16-byte load takes it
+__device__ __forceinline__ int4 p2_load16(const int8_t* src, int r, int k,
+                                          int rows, int K, bool vec) {
+  if (vec)
+    return r < rows && k < K
+        ? *reinterpret_cast<const int4*>(src + (long long)r * K + k)
+        : make_int4(0, 0, 0, 0);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (r < rows)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (k + i < K)
+        w[i >> 2] |= (uint32_t)(uint8_t)src[(long long)r * K + k + i]
+                     << (8 * (i & 3));
+  return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+// 4 bytes of row-major src (K x N) at (k, n .. n+3), zero past the edges;
+// vec: N % 4 == 0 and src 4-byte aligned
+__device__ __forceinline__ uint32_t p2_load4(const int8_t* src, int k, int n,
+                                             int K, int N, bool vec) {
+  if (k >= K) return 0u;
+  if (vec) return n < N ? ld_u32(src + (long long)k * N + n) : 0u;
+  uint32_t w = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (n + i < N)
+      w |= (uint32_t)(uint8_t)src[(long long)k * N + n + i] << (8 * i);
+  return w;
+}
+
+// transpose a 4x4 byte block in registers: r[i] holds row i (4 columns),
+// c[j] gets column j (4 rows, the lowest row lowest)
+__device__ __forceinline__ void p2_transpose4(const uint32_t* r, uint32_t* c) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(P2Cfg<BM, BN, WM, WN>::THREADS)
 p2_int8_mm(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-           int* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) int8_t As[P2_TILE][P2_STRIDE];
-  __shared__ __align__(16) int8_t Bt[P2_TILE][P2_STRIDE];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+           int* __restrict__ out, int M, int K, int N, bool a_vec,
+           bool b_vec, bool out_vec) {
+  using Cfg = P2Cfg<BM, BN, WM, WN>;
+  __shared__ __align__(16) int8_t As[2][BM][P2_STRIDE];
+  __shared__ __align__(16) int8_t Bt[2][BN][P2_STRIDE];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * P2_TILE, n0 = blockIdx.y * P2_TILE;
-  int acc[8][4] = {};
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // B task: 16 rows of k (chunk kc) x 4 columns (chunk nc), kc fastest, so
+  // the 16-byte stores of a quarter-warp fall on 32 distinct banks
+  const bool b_task = tid < Cfg::B_TASKS;
+  const int kc = tid & 3, nc = tid >> 2;
 
-  for (int k0 = 0; k0 < K; k0 += P2_TILE) {
-    for (int i = threadIdx.x; i < P2_TILE * P2_TILE; i += blockDim.x) {
-      const int r = i / P2_TILE, c = i % P2_TILE;
-      const int m = m0 + r, k = k0 + c;
-      As[r][c] = (m < M && k < K) ? a[(long long)m * K + k] : 0;
-    }
-    for (int i = threadIdx.x; i < P2_TILE * P2_TILE; i += blockDim.x) {
-      const int r = i / P2_TILE, c = i % P2_TILE;     // r: k, c: n
-      const int k = k0 + r, n = n0 + c;
-      Bt[c][r] = (k < K && n < N) ? b[(long long)k * N + n] : 0;
-    }
-    __syncthreads();
+  int4 ra[Cfg::A_TASKS];
+  uint32_t rb[16];
+  auto fetch = [&](int k0) {
 #pragma unroll
-    for (int kk = 0; kk < P2_TILE; kk += 16) {
-      const uint32_t af[2] = {ld_u32(&As[warp * 16 + g][kk + 4 * t]),
-                              ld_u32(&As[warp * 16 + g + 8][kk + 4 * t])};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mma_s8(acc[nt], af, ld_u32(&Bt[nt * 8 + g][kk + 4 * t]));
+    for (int i = 0; i < Cfg::A_TASKS; ++i) {
+      const int task = tid + i * Cfg::THREADS;
+      ra[i] = p2_load16(a, m0 + (task >> 2), k0 + 16 * (task & 3), M, K,
+                        a_vec);
     }
+    if (b_task) {
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        rb[kk] = p2_load4(b, k0 + 16 * kc + kk, n0 + 4 * nc, K, N, b_vec);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < Cfg::A_TASKS; ++i) {
+      const int task = tid + i * Cfg::THREADS;
+      *reinterpret_cast<int4*>(&As[buf][task >> 2][16 * (task & 3)]) = ra[i];
+    }
+    if (b_task) {
+      uint32_t col[4][4];                // col[j][q]: column j, k 4q .. 4q+3
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t c[4];
+        p2_transpose4(rb + 4 * q, c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) col[j][q] = c[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<int4*>(&Bt[buf][4 * nc + j][16 * kc]) =
+            make_int4(col[j][0], col[j][1], col[j][2], col[j][3]);
+    }
+  };
+
+  int acc[Cfg::TM][Cfg::TN][4] = {};
+  const int KT = (K + P2_BK - 1) / P2_BK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < KT) fetch((kt + 1) * P2_BK);     // in flight meanwhile
+#pragma unroll
+    for (int kk = 0; kk < P2_BK; kk += 16) {
+      uint32_t af[Cfg::TM][2], bf[Cfg::TN];
+#pragma unroll
+      for (int mt = 0; mt < Cfg::TM; ++mt) {
+        const int r = wm * Cfg::TM * 16 + mt * 16 + g;
+        af[mt][0] = ld_u32(&As[cur][r][kk + 4 * t]);
+        af[mt][1] = ld_u32(&As[cur][r + 8][kk + 4 * t]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < Cfg::TN; ++nt)
+        bf[nt] = ld_u32(&Bt[cur][wn * Cfg::TN * 8 + nt * 8 + g][kk + 4 * t]);
+#pragma unroll
+      for (int mt = 0; mt < Cfg::TM; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < Cfg::TN; ++nt)
+          mma_s8(acc[mt][nt], af[mt], bf[nt]);
+    }
+    if (kt + 1 < KT) stash(cur ^ 1);
     __syncthreads();
   }
 
-  const int r0 = m0 + warp * 16 + g;
+  // each thread's accumulator holds two adjacent columns: one int2 store
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int n = n0 + nt * 8 + 2 * t;
+  for (int mt = 0; mt < Cfg::TM; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= M) continue;
-      if (n < N) out[(long long)r * N + n] = acc[nt][2 * h];
-      if (n + 1 < N) out[(long long)r * N + n + 1] = acc[nt][2 * h + 1];
+    for (int nt = 0; nt < Cfg::TN; ++nt) {
+      const int n = n0 + wn * Cfg::TN * 8 + nt * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm * Cfg::TM * 16 + mt * 16 + g + 8 * h;
+        if (r >= M || n >= N) continue;
+        int* o = out + (long long)r * N + n;
+        if (out_vec && n + 1 < N) {
+          *reinterpret_cast<int2*>(o) =
+              make_int2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        } else {
+          o[0] = acc[mt][nt][2 * h];
+          if (n + 1 < N) o[1] = acc[mt][nt][2 * h + 1];
+        }
+      }
     }
-  }
 }
 
 // ------------------------------------------------------------------ P3
@@ -174,19 +282,6 @@ __device__ __forceinline__ int cost_of(int dlevel, int lv, const P3Params& p) {
   const int c1 = (kI32Max / p.wd <= dist) ? kI32Max : p.wd * dist;
   const int c2 = (kI32Max / p.wb <= r) ? kI32Max : p.wb * r;
   return (kI32Max - c1 <= c2) ? kI32Max : c1 + c2;
-}
-
-// four base-128 digits k of v[0..3] packed as s8: low digits unsigned
-// (0..127), the top digit signed
-template <bool TOP>
-__device__ __forceinline__ uint32_t digits(const int4 v, int k) {
-  const int s = 7 * k;
-  const int d[4] = {v.x >> s, v.y >> s, v.z >> s, v.w >> s};
-  uint32_t r = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    r |= (uint32_t)((TOP ? d[i] : d[i] & 127) & 0xFF) << (8 * i);
-  return r;
 }
 
 // One transform stage on warps 0 and 1: O[:, 8h .. 8h+7] = X @ K^T for the
@@ -315,14 +410,30 @@ int hevce_p1_add_one(void* x, long long n, void* stream) {
 }
 
 // P2: out (M, N) int32 = a (M, K) int8 @ b (K, N) int8, all row-major and
-// contiguous, on `stream`. Returns cudaGetLastError().
+// contiguous, on `stream`. Tiles of 128 x 128 on 8 warps when they fill the
+// card's 132 SMs at least once, else 32 x 16 on 2 warps (the probe's 512 x
+// 64 output as 64 blocks). Returns cudaGetLastError().
 int hevce_p2_int8_mm(const void* a, const void* b, void* out, int M, int K,
                      int N, void* stream) {
-  const dim3 grid((M + P2_TILE - 1) / P2_TILE, (N + P2_TILE - 1) / P2_TILE);
-  if (M > 0 && N > 0)
-    p2_int8_mm<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-        static_cast<int*>(out), M, K, N);
+  if (M <= 0 || N <= 0) return cudaGetLastError();
+  const auto* pa = static_cast<const int8_t*>(a);
+  const auto* pb = static_cast<const int8_t*>(b);
+  auto* po = static_cast<int*>(out);
+  const bool a_vec = K % 16 == 0 && (uintptr_t)a % 16 == 0;
+  const bool b_vec = N % 4 == 0 && (uintptr_t)b % 4 == 0;
+  const bool out_vec = N % 2 == 0 && (uintptr_t)out % 8 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto blocks = [&](int bm, int bn) {
+    return dim3((M + bm - 1) / bm, (N + bn - 1) / bn);
+  };
+  const dim3 big = blocks(128, 128);
+  if ((long long)big.x * big.y >= 132)
+    p2_int8_mm<128, 128, 2, 4><<<big, P2Cfg<128, 128, 2, 4>::THREADS, 0, s>>>(
+        pa, pb, po, M, K, N, a_vec, b_vec, out_vec);
+  else
+    p2_int8_mm<32, 16, 2, 1><<<blocks(32, 16), P2Cfg<32, 16, 2, 1>::THREADS,
+                               0, s>>>(pa, pb, po, M, K, N, a_vec, b_vec,
+                                       out_vec);
   return cudaGetLastError();
 }
 

@@ -42,10 +42,7 @@ def build(force: bool = False):
     """Compile csrc/cabac_scan.cu for sm_90a (once, or again with
     force=True; see runtime/build). Returns (library path, compiler output,
     which holds ptxas's register and shared-memory report)."""
-    return _build.build(SOURCE, LIB_NAME, [
-        _build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", str(SOURCE)], force)
+    return _build.build(SOURCE, LIB_NAME, _build.nvcc_cmd(SOURCE), force)
 
 
 def _load():

@@ -23,6 +23,7 @@ from hevce_tpu_torch.ops import quant, rdcost, xform
 from hevce_tpu_torch.runtime import build as _build
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "fused_eval.cu"
+HEADER = SOURCE.parent / "mma_s8.cuh"
 LIB_NAME = "libhevce_k1.so"
 SIZES = (4, 8, 16, 32)
 
@@ -30,7 +31,8 @@ LAUNCHES = 0          # kernel launches made by pipeline_sse (CUDA route)
 
 _lock = threading.Lock()
 _lib = None
-_init_devices = set()
+_mats_cache = {}
+_LVL6 = (ctypes.c_int * 6)(*(int(v) for v in C.LEVEL_RATE_TABLE[:6]))
 
 
 # ------------------------------------------------------------ plain version
@@ -59,11 +61,9 @@ def pipeline_sse_plain(sz: int, qpd6: int, pred, blk):
 def build(force: bool = False):
     """Compile csrc/fused_eval.cu for sm_90a (once, or again with
     force=True; see runtime/build). Returns (library path, compiler output,
-    which holds ptxas's register and shared-memory report)."""
-    return _build.build(SOURCE, LIB_NAME, [
-        _build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", str(SOURCE)], force)
+    which holds ptxas's register, shared-memory and spill report)."""
+    return _build.build(SOURCE, LIB_NAME, _build.nvcc_cmd(SOURCE), force,
+                        deps=[HEADER])
 
 
 def _load():
@@ -72,32 +72,40 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            lib.hevce_k1_init.restype = ctypes.c_int
-            lib.hevce_k1_init.argtypes = [ctypes.c_void_p] * 5
-            lib.hevce_k1_launch.restype = ctypes.c_int
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.hevce_k1_launch.restype = i32
             lib.hevce_k1_launch.argtypes = (
-                [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_longlong] + [ctypes.c_int] * 8
-                + [ctypes.c_void_p] * 4)
+                [i32, vp, vp, vp] + [i32] * 9
+                + [ctypes.POINTER(i32), vp, vp, vp, vp])
             _lib = lib
         return _lib
 
 
-def _init_device(lib, device: torch.device):
-    """upload the constant tables to this device's constant memory once."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+def imma_by_size(counts: dict) -> dict:
+    """{sz: IMMA instructions} of K1's instantiations, from the per-kernel
+    counts of ops/probes.imma_counts (mangled names: k1_kernel4, and
+    k1_kernel_tc<sz> as 'k1_kernel_tcILi<sz>E')."""
+    def of(sz):
+        tag = "k1_kernel4" if sz == 4 else f"k1_kernel_tcILi{sz}E"
+        return sum(n for fn, n in counts.items() if tag in fn)
+    return {sz: of(sz) for sz in SIZES}
+
+
+def stage_matrices(sz: int) -> np.ndarray:
+    """(2, sz, sz) int8: M and M^T row-major, the B operands K1 reads (the
+    forward stages take rows of M, the inverse ones rows of M^T)."""
+    m = np.asarray(C.TRANSFORM_MAT[sz], np.int64)
+    assert np.abs(m).max() <= 127
+    return np.ascontiguousarray(np.stack([m, m.T]).astype(np.int8))
+
+
+def _mats_device(device: torch.device, sz: int):
+    """stage_matrices(sz) on `device`, uploaded once."""
     with _lock:
-        if idx in _init_devices:
-            return
-        arrs = [np.ascontiguousarray(C.TRANSFORM_MAT[sz], np.int32)
-                for sz in SIZES]
-        arrs.append(np.ascontiguousarray(C.LEVEL_RATE_TABLE[:6], np.int32))
-        with torch.cuda.device(idx):
-            rc = lib.hevce_k1_init(*(a.ctypes.data for a in arrs))
-        if rc != 0:
-            raise RuntimeError(f"K1 constant upload failed: cudaError {rc}")
-        _init_devices.add(idx)
+        key = (device, sz)
+        if key not in _mats_cache:
+            _mats_cache[key] = torch.from_numpy(stage_matrices(sz)).to(device)
+        return _mats_cache[key]
 
 
 def _check(sz, qpd6, pred, blk):
@@ -128,21 +136,24 @@ def pipeline_sse(sz: int, qpd6: int, pred, blk):
     _check(sz, qpd6, pred, blk)
     if pred.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {pred.device}")
+    n_cand = pred.numel() // (sz * sz)
+    if n_cand >= 2**31:
+        raise ValueError(f"K1 takes fewer than 2^31 candidates, got {n_cand}")
     lib = _load()
-    _init_device(lib, pred.device)
+    mats = _mats_device(pred.device, sz)
     q = torch.empty(pred.shape, dtype=torch.int16, device=pred.device)
     rec = torch.empty_like(pred)
     sse = torch.empty(pred.shape[:-2], dtype=torch.int32, device=pred.device)
-    n_cand = pred.numel() // (sz * sz)
     if n_cand == 0:
         return q, rec, sse
     stream = torch.cuda.current_stream(pred.device).cuda_stream
     rc = lib.hevce_k1_launch(
-        sz, pred.data_ptr(), blk.data_ptr(), n_cand, int(pred.shape[-3]),
-        int(C.FWD_SHIFT_A[sz]), int(C.QUANT_DIST_SHIFT[sz]),
-        int(C.QUANT_LEVEL_SHIFT[sz]), int(C.DEQUANT_SHIFT[sz]), qpd6,
-        int(C.RDCOST_WEIGHT_DIST[qpd6]), int(C.RDCOST_WEIGHT_BITS[qpd6]),
-        q.data_ptr(), rec.data_ptr(), sse.data_ptr(), stream)
+        sz, pred.data_ptr(), blk.data_ptr(), mats.data_ptr(), n_cand,
+        int(pred.shape[-3]), int(C.FWD_SHIFT_A[sz]),
+        int(C.QUANT_DIST_SHIFT[sz]), int(C.QUANT_LEVEL_SHIFT[sz]),
+        int(C.DEQUANT_SHIFT[sz]), qpd6, int(C.RDCOST_WEIGHT_DIST[qpd6]),
+        int(C.RDCOST_WEIGHT_BITS[qpd6]), _LVL6, q.data_ptr(), rec.data_ptr(),
+        sse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -29,6 +29,7 @@ from hevce_tpu_torch.ops import quant, rdcost, xform
 from hevce_tpu_torch.runtime import build as _build
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "probes.cu"
+HEADER = SOURCE.parent / "mma_s8.cuh"
 LIB_NAME = "libhevce_probes.so"
 SZ = 4                # P3's block size
 NN = SZ * SZ
@@ -109,11 +110,9 @@ def fused4_plain(pred, blk, qpd6: int = 2):
 def build(force: bool = False):
     """Compile csrc/probes.cu for sm_90a (once, or again with force=True;
     see runtime/build). Returns (library path, compiler output, which holds
-    ptxas's register and shared-memory report)."""
-    return _build.build(SOURCE, LIB_NAME, [
-        _build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", str(SOURCE)], force)
+    ptxas's register, shared-memory and spill report)."""
+    return _build.build(SOURCE, LIB_NAME, _build.nvcc_cmd(SOURCE), force,
+                        deps=[HEADER])
 
 
 def imma_counts(path) -> dict:

@@ -18,15 +18,16 @@ BUILD_DIR = ROOT / "build" / "hevce_tpu_torch"
 _locks = collections.defaultdict(threading.Lock)   # one per library name
 
 
-def build(src: pathlib.Path, name: str, cmd: list, force: bool = False):
+def build(src: pathlib.Path, name: str, cmd: list, force: bool = False,
+          deps=()):
     """Compile `src` into BUILD_DIR/name with `cmd` (the compiler command
-    without its output flag) unless an up-to-date library is there, or
-    always with force=True. Returns (library path, compiler output; "" when
-    nothing was built)."""
+    without its output flag) unless a library newer than `src` and the
+    headers `deps` is there, or always with force=True. Returns (library
+    path, compiler output; "" when nothing was built)."""
     out = BUILD_DIR / name
     with _locks[name]:
-        if (not force and out.exists()
-                and out.stat().st_mtime >= src.stat().st_mtime):
+        newest = max(p.stat().st_mtime for p in (src, *deps))
+        if not force and out.exists() and out.stat().st_mtime >= newest:
             return out, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=name + ".",
@@ -44,6 +45,13 @@ def build(src: pathlib.Path, name: str, cmd: list, force: bool = False):
             if os.path.exists(tmp):
                 os.unlink(tmp)
         return out, r.stdout + r.stderr
+
+
+def nvcc_cmd(src: pathlib.Path) -> list:
+    """nvcc for sm_90a into a shared library with a plain C interface,
+    ptxas's register, shared-memory and spill report included."""
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", str(src)]
 
 
 def nvcc() -> str:

@@ -9,15 +9,17 @@
   P2  int8 x int8 -> int32 products on the tensor cores (int8_mm, mma.sync):
       EXACT or MISMATCH against the plain version and the probe's own
       reference a.astype(int32) @ b.astype(int32), on random entries and on
-      all -128; then the card time of the kernel and of torch._int_mm.
+      all -128; then the card time of the kernel and of torch._int_mm. On a
+      card also at one busy shape, (4096, 4096, 4096): EXACT or MISMATCH
+      against a float64 product (exact: |sum| < 2^26), and both card times.
   P3  the fused 4x4 eval (fused4) at 512 rows x 35 modes, qpd6=2: quant and
       sse EXACT or MISMATCH against the plain op chain and against K1 at
       (4, 35) (ops/fused_eval.pipeline_sse); then us per eval over a chain
       of 16 evals for the plain op chain, for P3 and for K1.
 
-Each probe prints one line (P1 and P3 two). A failing probe raises, so the
-tool exits non-zero. Times on the CPU (--device cpu) are the host's; the
-card's numbers need a CUDA device.
+Each probe prints one line (P1 and P3 two, P2 two on a card). A failing
+probe raises, so the tool exits non-zero. Times on the CPU (--device cpu)
+are the host's; the card's numbers need a CUDA device.
 
 Usage: python -m hevce_tpu_torch.tools.cuda_probe [--device cpu]
 """
@@ -33,6 +35,7 @@ from hevce_tpu_torch.utils import timing
 P1_SHAPE = (8, 128)
 P1_LENGTHS = (64, 1024)
 P2_SHAPE = (512, 64, 64)             # M, K, N
+P2_LARGE = (4096, 4096, 4096)
 P3_ROWS, P3_MODES = 512, 35          # the TPU probe's B=32 x R=16 lanes
 P3_CHAIN = 16
 QPD6 = 2
@@ -116,8 +119,8 @@ def p2_inputs(rng):
 
 
 def probe_int8_matmul(dev, out=print):
-    """P2. Returns {"exact": True, "card_us", "library_card_us"} (the
-    times on CUDA only)."""
+    """P2. Returns {"exact": True, "card_us", "library_card_us", "large"}
+    (the times and the large shape on CUDA only)."""
     cases = [(case, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
               torch.from_numpy(a.astype(np.int32) @ b.astype(np.int32)))
              for case, a, b in p2_inputs(np.random.default_rng(0))]
@@ -131,17 +134,48 @@ def probe_int8_matmul(dev, out=print):
                               f"({case})")
     res = {"exact": True}
     _, a, b, _ = cases[0]
+    M, K, N = P2_SHAPE
     if dev.type == "cuda":
-        res["card_us"] = 1e3 * timing.card_ms(lambda: probes.int8_mm(a, b), 20)
-        res["library_card_us"] = 1e3 * timing.card_ms(
-            lambda: torch._int_mm(a, b), 20)
+        res.update(_p2_times(a, b))
         times = (f"card {res['card_us']:.3f} us, torch._int_mm "
                  f"{res['library_card_us']:.3f} us")
     else:
         times = "card times need a CUDA device"
-    M, K, N = P2_SHAPE
     out(f"P2 int8 matmul ({M}, {K}) x ({K}, {N}) on {dev.type}: "
         f"{_verdict(True)} (random, all -128); {times}")
+    if dev.type == "cuda":
+        res["large"] = probe_int8_matmul_large(dev, out)
+    return res
+
+
+def _p2_times(a, b):
+    return {"card_us": 1e3 * timing.card_ms(lambda: probes.int8_mm(a, b), 20),
+            "library_card_us": 1e3 * timing.card_ms(
+                lambda: torch._int_mm(a, b), 20)}
+
+
+def probe_int8_matmul_large(dev, out=print):
+    """P2 at P2_LARGE on the card, random operands: exact against a float64
+    product, and the card times of the kernel and of torch._int_mm.
+    Returns {"shape", "exact", "card_us", "library_card_us"}."""
+    M, K, N = P2_LARGE
+    g = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    want = (a.double() @ b.double()).int()
+    ok = torch.equal(probes.int8_mm(a, b), want)
+    del want
+    if not ok:
+        out(f"P2 int8 matmul {P2_LARGE}: {_verdict(ok)}")
+        raise ProbeFailed(f"P2 int8_mm differs from a float64 product at "
+                          f"{P2_LARGE}")
+    res = dict(_p2_times(a, b), shape=list(P2_LARGE), exact=True)
+    out(f"P2 int8 matmul ({M}, {K}) x ({K}, {N}) on {dev.type}: "
+        f"{_verdict(ok)} (random, against float64); card "
+        f"{res['card_us']:.3f} us, torch._int_mm "
+        f"{res['library_card_us']:.3f} us")
     return res
 
 

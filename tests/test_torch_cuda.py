@@ -190,10 +190,17 @@ def test_p1_in_a_captured_cuda_graph(cuda_device):
     assert bool((x == 20).all())
 
 
+# the probe's shape and extremes; ragged edges (K not a multiple of 16 or
+# 32, N not a multiple of 4, odd N); more than 64 blocks of the small tiling
+# (1000, 96, 200), and the 128 x 128 tiling with ragged K and N
+P2_CASES = [(512, 64, 64, None), (512, 64, 64, -128), (100, 48, 24, None),
+            (16, 16, 8, 127), (130, 160, 72, None), (77, 40, 36, None),
+            (130, 33, 70, None), (64, 200, 3, None), (1000, 96, 200, None),
+            (1700, 70, 1290, None), (2100, 48, 1281, -128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N,fill", [(512, 64, 64, None), (512, 64, 64, -128),
-                                        (100, 48, 24, None), (16, 16, 8, 127),
-                                        (130, 160, 72, None)])
+@pytest.mark.parametrize("M,K,N,fill", P2_CASES)
 def test_p2_int8_mm_matches_plain_on_card(cuda_device, M, K, N, fill):
     rng = np.random.default_rng(M + K + N)
     if fill is None:
@@ -201,14 +208,16 @@ def test_p2_int8_mm_matches_plain_on_card(cuda_device, M, K, N, fill):
         b = rng.integers(-128, 128, (K, N)).astype(np.int8)
     else:
         a, b = np.full((M, K), fill, np.int8), np.full((K, N), -128, np.int8)
-    want = torch.from_numpy(a.astype(np.int32) @ b.astype(np.int32))
+    want = torch.from_numpy((a.astype(np.int64) @ b.astype(np.int64))
+                            .astype(np.int32))
     a, b = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
     n0 = probes.LAUNCHES["int8_mm"]
     got = probes.int8_mm(a, b)
     torch.cuda.synchronize()
     assert probes.LAUNCHES["int8_mm"] == n0 + 1
     assert torch.equal(got.cpu(), want)
-    assert torch.equal(got, probes.int8_mm_plain(a, b))
+    if M * K * N <= 2**24:              # the plain version's int64 product
+        assert torch.equal(got, probes.int8_mm_plain(a, b))
 
 
 @pytest.mark.cuda
@@ -236,6 +245,13 @@ def test_p2_and_p3_issue_int8_tensor_core_instructions(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k1_transform_stages_issue_int8_tensor_core_instructions(cuda_device):
+    counts = fused_eval.imma_by_size(probes.imma_counts(fused_eval.build()[0]))
+    assert all(counts[sz] > 0 for sz in (8, 16, 32)), counts
+    assert counts[4] == 0, counts              # 4x4 stays on the CUDA cores
+
+
+@pytest.mark.cuda
 def test_probe_wrappers_reject_what_they_do_not_take(cuda_device):
     a = torch.zeros((32, 16), dtype=torch.int8, device=cuda_device)
     with pytest.raises(TypeError):
@@ -257,7 +273,8 @@ def test_measurement_tools_on_card(cuda_device, tmp_path):
     lines = []
     res = cuda_probe.run(cuda_device, out=lines.append)
     assert res["p1"]["add_one"]["graph_us"] > 0 and res["p2"]["exact"]
-    assert sum("EXACT" in ln for ln in lines) == 2
+    assert res["p2"]["large"]["exact"]
+    assert sum("EXACT" in ln for ln in lines) == 3
     assert not any("MISMATCH" in ln for ln in lines)
     assert bench_fused.main(["4,35", "--n1", "2", "--n2", "6"],
                             out=lines.append) == 0

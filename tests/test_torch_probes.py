@@ -5,7 +5,9 @@ The kernels themselves (csrc/probes.cu) run only on a card: their checks
 against these plain versions are in tests/test_torch_cuda.py.
 """
 import importlib.util
+import os
 import pathlib
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,7 @@ from hevce_tpu.ops import quant as jquant
 from hevce_tpu.ops import xform as jxform
 from hevce_tpu.utils import imageio as jimageio
 from hevce_tpu_torch.ops import constants as C
-from hevce_tpu_torch.ops import probes
+from hevce_tpu_torch.ops import fused_eval, probes
 from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
 from hevce_tpu_torch.utils import imageio
 from hevce_tpu_torch.utils.tracing import device_trace
@@ -63,6 +65,17 @@ def test_p2_plain_equals_the_probes_reference(case):
         want)
 
 
+@pytest.mark.parametrize("M,K,N", [(77, 40, 36), (130, 33, 70), (5, 3, 1)])
+def test_p2_plain_at_ragged_shapes(M, K, N):
+    rng = np.random.default_rng(M * K * N)
+    a = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    got = probes.int8_mm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    np.testing.assert_array_equal(got.numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
+
+
 # --------------------------------------------------------------------- P3
 
 @pytest.mark.parametrize("which", ["stage", "inv"])
@@ -80,13 +93,17 @@ def _digits(x, ndig):
             for k in range(ndig)]
 
 
-def _kernel_product(x, kmat, ndig):
-    """x (n, 16) @ kmat^T as csrc/probes.cu computes it: int8 digit products
-    recombined by Horner's rule in an int32 accumulator."""
-    acc = np.zeros((x.shape[0], 16), np.int64)
+def _kernel_product(x, bt, ndig):
+    """x (..., rows, k) @ bt^T (bt (n, k) int8) as csrc/mma_s8.cuh's users
+    compute it: the depth zero-padded to a multiple of mma.sync's 16, int8
+    digit products recombined by Horner's rule in an int32 accumulator."""
+    pad = -x.shape[-1] % 16
+    x = np.concatenate([x, np.zeros(x.shape[:-1] + (pad,), np.int64)], -1)
+    bt = np.pad(bt.astype(np.int64), ((0, 0), (0, pad)))
+    acc = np.zeros(x.shape[:-1] + (bt.shape[0],), np.int64)
     for d in reversed(_digits(x, ndig)):
         assert d.min() >= -128 and d.max() <= 127        # each digit is s8
-        acc = acc * 128 + d @ kmat.astype(np.int64).T
+        acc = acc * 128 + d @ bt.T
         assert np.abs(acc).max() < 2**31                 # int32 accumulator
     return acc
 
@@ -99,37 +116,70 @@ def _clip16(x):
     return np.clip(x, -32768, 32767)
 
 
-def test_digit_split_kron_formulation_equals_direct_transform():
-    rng = np.random.default_rng(4)
-    n = 2000
-    resid = rng.integers(-255, 256, (n, 16))
-    edges = lambda lo, hi: [[hi] * 16, [lo] * 16, [lo] * 8 + [hi] * 8,
-                            [hi, lo] * 8]
-    resid[:4] = edges(-255, 255)
-    dq = rng.integers(-32768, 32768, (n, 16))
-    dq[:4] = edges(-32768, 32767)
-    k1, k2 = probes.kron_stage(4)
-    ik1, ik2 = probes.kron_inv(4)
-    a = int(C.FWD_SHIFT_A[4])
-    tmp = _rnd(_kernel_product(resid, k1, 2), a)
-    coef = _rnd(_kernel_product(tmp, k2, 3), a + 7)
-    want = jxform.forward_transform(4, jnp.asarray(
-        resid.reshape(n, 4, 4).astype(np.int32)))
-    np.testing.assert_array_equal(coef.reshape(n, 4, 4), np.asarray(want))
-    t1 = _clip16(_rnd(_kernel_product(dq, ik1, 3), 7))
-    rec = _clip16(_rnd(_kernel_product(t1, ik2, 3), 12))
-    want = jxform.inverse_transform(4, jnp.asarray(
-        dq.reshape(n, 4, 4).astype(np.int32)))
-    np.testing.assert_array_equal(rec.reshape(n, 4, 4), np.asarray(want))
-    # the matrices act from the left on flattened blocks: x_row @ K^T. The
-    # Pallas probe's mm(x, kron(eye, K)) takes x_row @ K, which is M^T X:
-    # the transposed transform, so the kernel follows the op chain instead
-    m = C.TRANSFORM_MAT[4].astype(np.int64)
-    x = resid.reshape(n, 4, 4)
-    np.testing.assert_array_equal(
-        (resid @ k1.astype(np.int64).T).reshape(n, 4, 4), m @ x)
-    np.testing.assert_array_equal(
-        (resid @ k1.astype(np.int64)).reshape(n, 4, 4), m.T @ x)
+def _extreme_blocks(rng, sz, n, lo, hi):
+    """n blocks (n, sz, sz): the constant extremes, half and half,
+    checkerboards, one-hot blocks, the sign pattern of a basis function at
+    full scale (the largest first-stage sums), then uniform noise."""
+    x = rng.integers(lo, hi + 1, (n, sz, sz))
+    ii, jj = np.mgrid[0:sz, 0:sz]
+    s1 = np.sign(C.TRANSFORM_MAT[sz][1]).astype(np.int64)
+    s1[s1 == 0] = 1
+    edges = [np.full((sz, sz), hi), np.full((sz, sz), lo),
+             np.where(jj < sz // 2, lo, hi), np.where((ii + jj) % 2, lo, hi),
+             np.where((ii + jj) % 2, hi, lo),
+             np.where((ii == 0) & (jj == 0), hi, 0),
+             np.where((ii == sz - 1) & (jj == 1), lo, 0),
+             np.where(np.outer(s1, s1) > 0, hi, lo),
+             np.where(np.outer(s1, s1) > 0, lo, hi)]
+    x[:len(edges)] = edges
+    return x
+
+
+@pytest.mark.parametrize("sz", [4, 8, 16, 32])
+def test_digit_split_kron_formulation_equals_direct_transform(sz):
+    """The exact int8 tensor-core transforms in int64 numpy: P3's Kronecker
+    form at 4x4 (csrc/probes.cu), K1's transposed-tile form at 8-32
+    (csrc/fused_eval.cu: T^T = X^T @ M^T, C = T @ M^T, U^T = Dq^T @ M,
+    R = U @ M, with the rows of M and M^T of fused_eval.stage_matrices as
+    the B operand), equal to the JAX transforms at the extremes and on
+    noise."""
+    rng = np.random.default_rng(4 + sz)
+    n = {4: 2000, 8: 600, 16: 200, 32: 60}[sz]
+    resid = _extreme_blocks(rng, sz, n, -255, 255)
+    dq = _extreme_blocks(rng, sz, n, -32768, 32767)
+    a = int(C.FWD_SHIFT_A[sz])
+    swap = lambda x: np.swapaxes(x, -1, -2)
+    if sz == 4:
+        k1, k2 = probes.kron_stage(4)
+        ik1, ik2 = probes.kron_inv(4)
+        flat = lambda x: x.reshape(n, 16)
+        tmp = _rnd(_kernel_product(flat(resid), k1, 2), a)
+        coef = _rnd(_kernel_product(tmp, k2, 3), a + 7).reshape(n, 4, 4)
+        t1 = _clip16(_rnd(_kernel_product(flat(dq), ik1, 3), 7))
+        rec = _clip16(_rnd(_kernel_product(t1, ik2, 3), 12)).reshape(n, 4, 4)
+    else:
+        mr, mt = fused_eval.stage_matrices(sz)
+        np.testing.assert_array_equal(mr, C.TRANSFORM_MAT[sz])
+        tmp = _rnd(swap(_kernel_product(swap(resid), mr, 2)), a)
+        assert np.abs(tmp).max() < 2**17            # 3 digits hold it
+        coef = _rnd(_kernel_product(tmp, mr, 3), a + 7)
+        t1 = _clip16(_rnd(swap(_kernel_product(swap(dq), mt, 3)), 7))
+        rec = _clip16(_rnd(_kernel_product(t1, mt, 3), 12))
+    want = jxform.forward_transform(sz, jnp.asarray(resid.astype(np.int32)))
+    np.testing.assert_array_equal(coef, np.asarray(want))
+    want = jxform.inverse_transform(sz, jnp.asarray(dq.astype(np.int32)))
+    np.testing.assert_array_equal(rec, np.asarray(want))
+    if sz == 4:
+        # the matrices act from the left on flattened blocks: x_row @ K^T.
+        # The Pallas probe's mm(x, kron(eye, K)) takes x_row @ K, which is
+        # M^T X: the transposed transform, so P3 follows the op chain instead
+        m = C.TRANSFORM_MAT[4].astype(np.int64)
+        np.testing.assert_array_equal(
+            (resid.reshape(n, 16) @ k1.astype(np.int64).T).reshape(n, 4, 4),
+            m @ resid)
+        np.testing.assert_array_equal(
+            (resid.reshape(n, 16) @ k1.astype(np.int64)).reshape(n, 4, 4),
+            m.T @ resid)
 
 
 @pytest.mark.parametrize("qpd6", [0, 2, 4])
@@ -154,6 +204,42 @@ def test_p3_plain_equals_jax_op_chain(qpd6):
     k1q, k1sse = cuda_probe.via_k1(torch.from_numpy(pred),
                                    torch.from_numpy(blk), qpd6)
     assert torch.equal(k1q, q) and torch.equal(k1sse, sse)
+
+
+# ------------------------------------------------------------ K1, build
+
+def test_k1_imma_counts_by_size_read_the_mangled_instantiations():
+    ns = "_ZN46_GLOBAL__N__9ef10734_13_fused_eval_cu_f4e2b24b"   # nvcc 12.9
+    tail = "EEEvPKhS2_PKaiiNS_8K1ParamsEPsPhPi"
+    counts = {ns + "10k1_kernel4EPKhS1_PKaiiNS_8K1ParamsEPsPhPi": 0,
+              ns + "12k1_kernel_tcILi8" + tail: 22,
+              ns + "12k1_kernel_tcILi16" + tail: 11,
+              ns + "12k1_kernel_tcILi32" + tail: 33,
+              "_ZN41_GLOBAL__N__fc5085c3_9_probes_cu_aa23f5889p3_fused4EPKhS1_"
+              "PKaxiNS_8P3ParamsEPiS5_": 11}
+    assert fused_eval.imma_by_size(counts) == {4: 0, 8: 22, 16: 11, 32: 33}
+
+
+def test_build_redoes_a_library_when_its_header_changes(tmp_path,
+                                                        monkeypatch):
+    from hevce_tpu_torch.runtime import build as _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    src, hdr, log = (tmp_path / n for n in ("k.cu", "k.cuh", "log"))
+    src.write_text("x")
+    hdr.write_text("y")
+    # a stand-in compiler: writes its output and counts its runs
+    cmd = [sys.executable, "-c",
+           "import sys; open(sys.argv[2], 'w').write('lib'); "
+           f"open({str(log)!r}, 'a').write('.')"]
+    build = lambda: _build.build(src, "libk.so", cmd, deps=[hdr])
+    out, _ = build()
+    assert out.read_text() == "lib" and log.read_text() == "."
+    build()
+    assert log.read_text() == "."                  # up to date: not rebuilt
+    later = out.stat().st_mtime + 10
+    os.utime(hdr, (later, later))
+    build()
+    assert log.read_text() == ".."                 # the header is newer
 
 
 # ------------------------------------------------------------------ tools
