@@ -63,7 +63,10 @@ Phases, each printed as one JSON line:
   identity  3 small images at qpd6 0, 2 and 4, run on the card and on the
             CPU: the lean record buffers must be byte-identical.
 
-Then the seconds each phase took, the card's name and power limit
+Then the seconds each phase took, how many profiler sessions recorded no
+kernel and how many card times came from CUDA events instead (both 0 when
+the profiler worked throughout, utils/timing.card_ms), the card's name and
+power limit
 (nvidia-smi), the kernels line and, as the last line, {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -926,6 +929,7 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
     from hevce_tpu_torch.ops import probes
+    from hevce_tpu_torch.utils import timing
 
     took, t0 = {}, time.perf_counter()
 
@@ -953,6 +957,8 @@ def main():
     timed("identity", phase_identity, dev)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
+    emit({"phase": "timing", "empty_profiler_sessions": timing.EMPTY_SESSIONS,
+          "card_ms_event_timed": timing.EVENT_TIMED})
 
     print(card, flush=True)
 

@@ -1,12 +1,22 @@
 """Lightweight wall-clock phase timer for the encode path, and a device
 trace through torch.profiler."""
 import contextlib
+import os
 import pathlib
 import time
 from collections import defaultdict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+def keep_cupti():
+    """Keep CUPTI subscribed from one profiler session to the next. Kineto
+    tears CUPTI down when a session ends; in a process that has captured a
+    CUDA graph, a later re-initialisation can give sessions that record no
+    kernel on the card. torch.profiler sets the same variable itself when
+    torch.compile uses CUDA graphs. Called before every session."""
+    os.environ["TEARDOWN_CUPTI"] = "0"
 
 
 class PhaseTimer:
@@ -44,6 +54,7 @@ def device_trace(logdir):
         acts.append(ProfilerActivity.CUDA)
     out = pathlib.Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
+    keep_cupti()
     with profile(activities=acts) as prof:
         yield prof
         if torch.cuda.is_available():

@@ -16,6 +16,7 @@ from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, coef_ops, fused_eval,
 from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
+from hevce_tpu_torch.utils import timing
 from hevce_tpu_torch.utils.imageio import write_pgm
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
@@ -285,3 +286,20 @@ def test_measurement_tools_on_card(cuda_device, tmp_path):
                               out=lines.append) == 0
     assert (tmp_path / "trace" / "trace.json").exists()
     assert any(ln.startswith("card time:") for ln in lines)
+
+
+@pytest.mark.cuda
+def test_card_times_after_a_graph_capture(cuda_device):
+    """After a CUDA graph capture every profiler session still records the
+    card's kernels; busy_events_ms, card_ms's fallback, keeps the host's
+    enqueue out: a P1 launch there is far below its call time."""
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda_device)
+    step = lambda: probes.add_one(x)
+    step()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+    g.replay()
+    for _ in range(30):
+        assert timing.card_kernels(lambda: [step() for _ in range(5)])
+    assert timing.busy_events_ms(step, 50) < 0.5 * timing.cuda_ms(step, 50)

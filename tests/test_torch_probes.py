@@ -20,7 +20,7 @@ from hevce_tpu.utils import imageio as jimageio
 from hevce_tpu_torch.ops import constants as C
 from hevce_tpu_torch.ops import fused_eval, probes
 from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
-from hevce_tpu_torch.utils import imageio
+from hevce_tpu_torch.utils import imageio, timing
 from hevce_tpu_torch.utils.tracing import device_trace
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -264,6 +264,38 @@ def test_device_trace_records_on_cpu(tmp_path):
         torch.ones(64, dtype=torch.int32).cumsum(0)
     assert (tmp_path / "t" / "trace.json").stat().st_size > 0
     assert any("cumsum" in e.key for e in prof.key_averages())
+
+
+def test_profiler_sessions_keep_cupti_subscribed(tmp_path, monkeypatch):
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    with device_trace(tmp_path / "t"):
+        pass
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+
+
+@pytest.mark.parametrize("empty", [0, 1, timing.PROFILE_TRIES])
+def test_card_ms_runs_an_empty_profiler_session_again(monkeypatch, empty):
+    """`empty` sessions record no kernel; then card_ms reads the profiler's
+    600 us over 3 calls, or after PROFILE_TRIES empty sessions the CUDA
+    events' time."""
+    sessions, calls = [], []
+
+    def kernels(fn):
+        fn()
+        sessions.append(len(calls))
+        return [] if len(sessions) <= empty else [("k", 400.0, 3),
+                                                  ("c", 200.0, 1)]
+
+    monkeypatch.setattr(timing, "card_kernels", kernels)
+    monkeypatch.setattr(timing, "busy_events_ms", lambda fn, reps: 7.0)
+    monkeypatch.setattr(timing, "EMPTY_SESSIONS", 0)
+    monkeypatch.setattr(timing, "EVENT_TIMED", 0)
+    ms = timing.card_ms(lambda: calls.append(1), 3)
+    fell_back = empty == timing.PROFILE_TRIES
+    assert ms == pytest.approx(7.0 if fell_back else 0.2)
+    assert len(sessions) == min(empty + 1, timing.PROFILE_TRIES)
+    assert len(calls) == 3 * len(sessions)
+    assert (timing.EMPTY_SESSIONS, timing.EVENT_TIMED) == (empty, fell_back)
 
 
 def test_profile_front_on_one_32x32_image_cpu(tmp_path):
