@@ -40,8 +40,10 @@ Phases, each printed as one JSON line:
             59 slots), on the op strings of real candidate blocks, random
             strings and adversarial ones (0xFF / carry / 0x00 runs): the 7
             coder scalars and the palette must be equal (tolerance 0). Then
-            per-shape card time (profiler), call time (CUDA events), the
-            plain version's call time and the bound.
+            per shape the kernel's card time (profiler), ns per op of the
+            longest lane, the call time (CUDA events), the plain version's
+            call time and the bound. Inputs and checks come from the K2
+            tool (tools/bench_k2).
   slice     the main path, as a user calls it: encode_many_fast on 18
             synthetic 768x512 and 6 synthetic 512x768 images (qpd6=2,
             batch=18, RMD (12, 4), 'pre' prices, lean records, host pack).
@@ -103,16 +105,14 @@ LAUNCHES_PER_FRONT = sum(PER_FRONT.values())            # 169
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 # the lockstep path: a batch of 18 images 64x96 (6 CTUs); per CTU 21 node
-# events (sz 32: 1, 16: 4, 8: 16) and 64 PU events (csrc/hevce_host.cpp)
+# events (sz 32: 1, 16: 4, 8: 16) and 64 PU events (csrc/hevce_host.cpp),
+# as in tools/bench_k2
 LOCK_SHAPE = (64, 96)
 NODE_PER_CTU = {32: 1, 16: 4, 8: 16}
 PU_PER_CTU = 64
 # K1 launches per CTU there, all at (sz, 35) and 18 rows: a PU event's
 # 2Nx2N, a node event's 2Nx2N and its four sub-TUs at sz / 2
 K1_PER_CTU = {4: 128, 8: 32, 16: 8, 32: 1}
-# K2's work per op: decoding the op word, the bin update and the refill are
-# at least 30 int32 operations
-K2_OPS_PER_OP = 30
 
 
 def emit(obj):
@@ -293,40 +293,6 @@ def phase_kernels(torch, dev, rng):
 
 # ---------------------------------------------------------------- kernel K2
 
-def k2_shapes():
-    """the lockstep path's K2 shapes: (name, sz, lanes, cap, palette P,
-    launches per CTU with node_rates on)."""
-    from hevce_tpu_torch.ops import coef_ops
-    from hevce_tpu_torch.parallel import lockstep
-
-    shapes = [("pu", 4, BATCH * 35, lockstep.PU_CAP,
-               len(coef_ops._palette(4, False)[0]), PU_PER_CTU)]
-    for sz in (8, 16, 32):
-        shapes.append((f"node{sz}", sz, 2 * BATCH * 35,
-                       lockstep._NODE_CAPS[sz],
-                       len(coef_ops._palette(sz, True)[0]), NODE_PER_CTU[sz]))
-    return shapes
-
-
-def lock_requests(torch, dev, rng, sz):
-    """a lockstep event's requests at CU size sz: a batch of 18 CUs cut from
-    synthetic images (clamped neighbour reads, all borders present)."""
-    from hevce_tpu_torch.utils.synth import synth_image
-
-    tops, lefts, origs = [], [], []
-    for b in range(BATCH):
-        img = synth_image(rng, 96, 128, (1.5, 6.0, 30.0)[b % 3])
-        y, x = int(rng.integers(1, 96 - sz)), int(rng.integers(1, 128 - sz))
-        cols = np.clip(np.arange(x - 1, x + 2 * sz), 0, 127)
-        rows = np.clip(np.arange(y, y + 2 * sz), 0, 95)
-        tops.append(img[y - 1, cols])
-        lefts.append(img[rows, x - 1])
-        origs.append(img[y:y + sz, x:x + sz])
-    to = lambda a: torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
-    fl = torch.ones((BATCH, 4), dtype=torch.bool, device=dev)
-    return to(tops), to(lefts), fl, to(origs)
-
-
 def k1_lockstep_calls(torch, dev, rng, qpd6):
     """K1's inputs as the lockstep path hands them over at qpd6: for each CU
     size a batch of 18 requests through eval_2nx2n and (sz > 4) the dense
@@ -334,6 +300,7 @@ def k1_lockstep_calls(torch, dev, rng, qpd6):
     Returns the [(sz, pred, blk)] of every K1 call, taken at its wrapper."""
     from hevce_tpu_torch.models import cu_eval
     from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.tools.bench_k2 import lock_requests
 
     calls, k1 = [], fused_eval.pipeline_sse
 
@@ -344,7 +311,7 @@ def k1_lockstep_calls(torch, dev, rng, qpd6):
     fused_eval.pipeline_sse = taken
     try:
         for sz in (4, 8, 16, 32):
-            req = lock_requests(torch, dev, rng, sz)
+            req = lock_requests(dev, rng, sz)
             cu_eval.eval_2nx2n(sz, qpd6, *req)
             if sz > 4:
                 cu_eval.eval_tusplit(sz, qpd6, *req)
@@ -353,98 +320,31 @@ def k1_lockstep_calls(torch, dev, rng, qpd6):
     return calls
 
 
-def k2_block_inputs(torch, dev, rng, sz):
-    """K2's inputs as a lockstep event at sz hands them over: a batch of 18
-    requests (lock_requests), candidate blocks from K1, op generation
-    (ops/coef_ops), a fresh coder fork."""
-    from hevce_tpu_torch.bitstream import cabac as cb
-    from hevce_tpu_torch.models import cu_eval
-    from hevce_tpu_torch.ops import cabac_sim, coef_ops
-    from hevce_tpu_torch.parallel import lockstep
-
-    top, left, fl, orig = lock_requests(torch, dev, rng, sz)
-    q1, _, _ = cu_eval.eval_2nx2n(sz, QPD6, top, left, fl, orig)
-    if sz == 4:
-        pm = torch.arange(35, dtype=torch.int32, device=dev).repeat(BATCH)
-        state, ops, nops, _ = coef_ops.put_coef_trials(
-            4, QPD6, pm, q1.reshape(-1, 4, 4), cap=lockstep.PU_CAP)
-        return state, ops, nops
-    q4, _, _ = cu_eval.eval_tusplit(sz, QPD6, top, left, fl, orig)
-    st = cabac_sim.initial_state(BATCH, QPD6, dev)
-    state7 = torch.stack([st[f] for f in cabac_sim.FIELDS], 1)
-    fctxs = torch.as_tensor(np.frombuffer(bytes(cb.new_context_set(QPD6)),
-                                          np.uint8).astype(np.int32),
-                            device=dev).repeat(BATCH, 1)
-    meta = torch.from_numpy(np.stack(
-        [rng.integers(0, 35, BATCH), rng.integers(0, 35, BATCH),
-         rng.integers(0, 2, BATCH), rng.integers(0, 2, BATCH)],
-        1).astype(np.int32)).to(dev)
-    fork, ops, nops, _, _ = lockstep._node_trials(sz, q1, q4, state7, fctxs,
-                                                  meta)
-    return fork, ops, nops
-
-
-def k2_synthetic_inputs(torch, dev, rng, lanes, cap, P, adversarial):
-    """random op strings over a P-slot palette, or adversarial ones: a
-    third all-ones bypass runs between bins (outstanding 0xFF bytes), a
-    third runs of seven 1-bins between single bins (carries into them), a
-    third all-zero runs (emulation-prevention bytes). Nop-padded past each
-    lane's random count."""
-    from hevce_tpu_torch.ops import cabac_sim as cs
-
-    shape = (lanes, cap)
-    ctx = (cs.KIND_CTX | (rng.integers(0, P, shape) << 2)
-           | (rng.integers(0, 2, shape) << 10))
-    n = rng.integers(1, 9, shape)
-    byp = (cs.KIND_BYPASS | (n << 2)
-           | ((rng.integers(0, 256, shape) & ((1 << n) - 1)) << 6))
-    term = cs.KIND_TERM | ((rng.random(shape) < 0.02) << 10)
-    r = rng.random(shape)
-    if adversarial:
-        third = np.arange(lanes)[:, None] * 3 // lanes
-        bit = cs.KIND_BYPASS | (1 << 2) | (rng.integers(0, 2, shape) << 6)
-        ops = np.where(
-            third == 0, np.where(r < 0.5, cs.pack_bypass(0xFF, 8), ctx),
-            np.where(third == 1,
-                     np.where(r < 0.5, cs.pack_bypass(0x7F, 7), bit),
-                     np.where(r < 0.9, cs.pack_bypass(0, 8), ctx)))
-    else:
-        ops = np.where(r < 0.45, ctx, np.where(r < 0.9, byp, term))
-    nops = rng.integers(cap // 2, cap + 1, lanes)
-    ops[np.arange(cap)[None, :] >= nops[:, None]] = cs.KIND_NOP
-    state = cs.initial_state(lanes, int(rng.integers(0, 5)), dev)
-    state["ctxs"] = state["ctxs"][:, :P].contiguous()
-    return (state, torch.from_numpy(ops.astype(np.int32)).to(dev),
-            torch.from_numpy(nops.astype(np.int32)).to(dev))
-
-
-def k2_cost(state, nops):
-    """(bytes, int32 ops) one call must move and do: the real ops (4 B
-    each), the op counts, the 7 scalars in and out, the palette in."""
-    lanes, P = state["ctxs"].shape
-    n = int(nops.sum())
-    return (4 * n + 4 * lanes + 2 * 7 * 4 * lanes + 4 * lanes * P,
-            K2_OPS_PER_OP * n)
-
-
 def phase_k2(torch, dev, rng):
+    """K2 against its plain version at the lockstep path's four shapes on
+    real-block, random and adversarial strings (tolerance 0), then per
+    shape the kernel's card ms (torch.profiler), ns per op of the longest
+    lane, its call ms (CUDA events, the wrapper's enqueue included), the
+    plain version's call ms and the bound. The inputs and the checks are
+    the K2 tool's (python -m hevce_tpu_torch.tools.bench_k2)."""
     from hevce_tpu_torch.ops import cabac_scan
-    from hevce_tpu_torch.ops import cabac_sim as cs
+    from hevce_tpu_torch.tools import bench_k2 as bk
     from hevce_tpu_torch.utils import timing
 
+    k2 = bk.Variant("k2", dev)
     max_err, checked, shapes = 0, 0, []
-    for name, sz, lanes, cap, P, per_ctu in k2_shapes():
-        block = k2_block_inputs(torch, dev, rng, sz)
+    for name, sz, lanes, cap, P, per_ctu in bk.k2_shapes():
+        block = bk.k2_block_inputs(dev, rng, sz)
         if tuple(block[1].shape) != (lanes, cap) or \
                 block[0]["ctxs"].shape[1] != P:
             fail(f"K2 {name}: path inputs {tuple(block[1].shape)} P="
                  f"{block[0]['ctxs'].shape[1]}, expected ({lanes}, {cap}) "
                  f"P={P}")
         cases = [("blocks", block),
-                 ("random", k2_synthetic_inputs(torch, dev, rng, lanes, cap,
-                                                P, False)),
-                 ("adversarial", k2_synthetic_inputs(torch, dev, rng, lanes,
-                                                     cap, P, True))]
+                 ("random", bk.k2_synthetic_inputs(dev, rng, lanes, cap, P,
+                                                   False)),
+                 ("adversarial", bk.k2_synthetic_inputs(dev, rng, lanes,
+                                                        cap, P, True))]
         for case, (state, ops, nops) in cases:
             got = cabac_scan.advance_rates(state, ops, nops, want_ctxs=True)
             torch.cuda.synchronize()
@@ -455,33 +355,28 @@ def phase_k2(torch, dev, rng):
             torch.cuda.synchronize()
             if case == "blocks":        # the plain version's call time
                 plain_ms = t0.elapsed_time(t1)
-            for k in cs.FIELDS + ("ctxs",):
-                err = int((got[k].to(torch.int64)
-                           - want[k].to(torch.int64)).abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    fail(f"K2 {k} differs from the plain version at {name} "
-                         f"({case}): max |err| {err}")
+            try:
+                max_err = max(max_err, bk.compare(got, want,
+                                                  f"at {name} ({case})"))
+            except bk.Mismatch as e:
+                fail(str(e))
             checked += 1
         state, ops, nops = block
-        k2 = lambda: cabac_scan.advance_rates(state, ops, nops)
-        nbytes, n_ops = k2_cost(state, nops)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
-        shapes.append({
-            "shape": name, "lanes": lanes, "cap": cap, "P": P,
-            "per_ctu": per_ctu, "sum_nops": int(nops.sum()),
-            "max_nops": int(nops.max()), "ms": timing.card_ms(k2, 20),
-            "call_ms": timing.cuda_ms(k2, 50),
-            "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations"})
+        shapes.append(dict(
+            bk.shape_row(name, per_ctu, k2.ms(state, ops, nops), state,
+                         nops), cap=cap,
+            call_ms=timing.cuda_ms(
+                lambda: cabac_scan.advance_rates(state, ops, nops), 50),
+            plain_ms=plain_ms))
     emit({"phase": "kernels", "kernel": "cabac_scan", "checked": checked,
           "exact": True, "max_abs_err": max_err, "library_ms": None,
           "library_note": "no single PyTorch call computes a CABAC rate scan",
+          "ms_note": "ms is the kernel's own card time; call_ms the "
+                     "wrapper's (its stack of the scalars included)",
           "plain_note": "plain_ms is CUDA-event time of the check's call "
                         "on the real-block strings (its thousands of small "
                         "launches included)",
-          "shapes": shapes})
+          "ms_per_ctu": bk.per_ctu_ms(shapes), "shapes": shapes})
     return max_err, shapes
 
 
@@ -1003,11 +898,13 @@ def main():
             "bound_ms", lambda s: s["bound_by"] == "operations") * 2
         > per_ctu("bound_ms") else "bytes",
         "library_ms": None, "call_ms": per_ctu("call_ms"),
+        "ns_per_op": {s["shape"]: s["ns_per_op"] for s in k2_shapes_},
         "basis": f"one CTU of the lockstep path with node_rates on at a "
                  f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
                  f"21 node launches at 1260 lanes), on op strings of "
-                 f"synthetic blocks; launches count the three lockstep "
-                 f"runs"}] + [
+                 f"synthetic blocks, the kernel's own card time; "
+                 f"ns_per_op per launch over its longest lane; launches "
+                 f"count the three lockstep runs"}] + [
         dict(r, route="cuda", source="hevce_tpu_torch/csrc/probes.cu",
              encode_launches=encode_probe_launches[r["name"]],
              basis="one call at the probe's shape; launches count the run "

@@ -12,11 +12,14 @@ op-by-op simulation of ops/cabac_sim. There is no fallback between the two:
 a CUDA tensor launches the kernel or raises.
 """
 import ctypes
+import functools
 import pathlib
 import threading
 
+import numpy as np
 import torch
 
+from hevce_tpu_torch.bitstream import cabac as cb
 from hevce_tpu_torch.ops import cabac_sim as sim
 from hevce_tpu_torch.runtime import build as _build
 
@@ -27,7 +30,7 @@ MAX_P = 256           # palette slots a context op can address (8-bit index)
 LAUNCHES = 0          # kernel launches made by advance_rates (CUDA route)
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}            # loaded libraries by (source, -D flags)
 
 
 def scan_plain(state, ops, nops):
@@ -38,26 +41,62 @@ def scan_plain(state, ops, nops):
 
 # ------------------------------------------------------------------ kernel
 
-def build(force: bool = False):
-    """Compile csrc/cabac_scan.cu for sm_90a (once, or again with
-    force=True; see runtime/build). Returns (library path, compiler output,
-    which holds ptxas's register and shared-memory report)."""
-    return _build.build(SOURCE, LIB_NAME, _build.nvcc_cmd(SOURCE), force)
+@functools.lru_cache(maxsize=None)
+def kernel_tables(device: torch.device):
+    """The int32 table tensor K2 takes: the 64x4 LPS range table packed as
+    64 words, byte q of word s = LPS_TABLE[s, q] (every value fits a byte),
+    then the 128-entry LPS next-state table."""
+    lps = cb.LPS_TABLE.astype(np.uint32)
+    packed = lps[:, 0] | lps[:, 1] << 8 | lps[:, 2] << 16 | lps[:, 3] << 24
+    return torch.as_tensor(np.concatenate(
+        [packed.view(np.int32), cb.NEXT_STATE_LPS.astype(np.int32)]),
+        device=device)
 
 
-def _load():
-    global _lib
+def build(force: bool = False, defines=(), source=SOURCE):
+    """Compile csrc/cabac_scan.cu (or `source`, with the -D flags
+    `defines`) for sm_90a (once, or again with force=True; see
+    runtime/build). Returns (library path, compiler output, which holds
+    ptxas's register and shared-memory report)."""
+    return _build.build(source, LIB_NAME,
+                        _build.nvcc_cmd(source, defines), force)
+
+
+def load(defines=(), source=SOURCE):
+    """The built library of `source` with `defines` (K2 itself by default),
+    its launch function typed."""
     with _lock:
-        if _lib is None:
-            path, _ = build()
+        k = (str(source), tuple(defines))
+        if k not in _libs:
+            path, _ = build(defines=defines, source=source)
             lib = ctypes.CDLL(str(path))
             lib.hevce_k2_launch.restype = ctypes.c_int
             lib.hevce_k2_launch.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 4)
-            _lib = lib
-        return _lib
+            _libs[k] = lib
+        return _libs[k]
+
+
+def launch(lib, st_in, ctxs, ops, nops, tables, ctx_out=None):
+    """Launch the kernel of `lib` on the current stream: st_in (7, lanes)
+    int32 coder scalars, ctxs (lanes, P), ops (lanes, L), nops (lanes,),
+    `tables` as the kernel reads them, all on one CUDA device and checked
+    by the caller; ctx_out (lanes, P) receives the final palette, or None.
+    Returns st_out (7, lanes)."""
+    lanes, L = ops.shape
+    st_out = torch.empty_like(st_in)
+    with torch.cuda.device(ops.device):
+        rc = lib.hevce_k2_launch(
+            ops.data_ptr(), lanes, L, nops.data_ptr(), st_in.data_ptr(),
+            ctxs.data_ptr(), ctxs.shape[1], tables.data_ptr(),
+            st_out.data_ptr(),
+            None if ctx_out is None else ctx_out.data_ptr(),
+            torch.cuda.current_stream(ops.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    return st_out
 
 
 def _check(state, ops, nops):
@@ -95,25 +134,15 @@ def advance_rates(state, ops, nops, want_ctxs: bool = False):
         return scan_plain(state, ops, nops)
     if ops.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or CPU tensors, not {ops.device}")
-    lanes, L = ops.shape
-    P = state["ctxs"].shape[1]
     st_in = torch.stack([state[f] for f in sim.FIELDS])
-    st_out = torch.empty_like(st_in)
     ctx_out = torch.empty_like(state["ctxs"]) if want_ctxs else None
+    if ops.shape[0] == 0:
+        st_out = torch.empty_like(st_in)
+    else:
+        st_out = launch(load(), st_in, state["ctxs"], ops, nops,
+                        kernel_tables(ops.device), ctx_out)
+        LAUNCHES += 1
     out = {f: st_out[i] for i, f in enumerate(sim.FIELDS)}
     if want_ctxs:
         out["ctxs"] = ctx_out
-    if lanes == 0:
-        return out
-    lib = _load()
-    tables = sim._tables(ops.device)[0]
-    with torch.cuda.device(ops.device):
-        rc = lib.hevce_k2_launch(
-            ops.data_ptr(), lanes, L, nops.data_ptr(), st_in.data_ptr(),
-            state["ctxs"].data_ptr(), P, tables.data_ptr(), st_out.data_ptr(),
-            ctx_out.data_ptr() if want_ctxs else None,
-            torch.cuda.current_stream(ops.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
-    LAUNCHES += 1
     return out

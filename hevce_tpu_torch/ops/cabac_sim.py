@@ -80,17 +80,14 @@ def bit_len(state):
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
-    """One int32 tensor on `device` holding the LPS range table (flat, index
+    """int32 tensors on `device`: the LPS range table (flat, index
     4*state + q), the LPS and MPS next-state tables and the single-shot
-    renorm shift per (lps >> 3), then views of those four parts. Kernel K2
-    (ops/cabac_scan) takes the whole tensor and reads its first 512 entries,
-    the three coder tables."""
+    renorm shift per (lps >> 3). (Kernel K2 takes its own packed form,
+    ops/cabac_scan.kernel_tables.)"""
     renorm = [6] + [5 - (i.bit_length() - 1) for i in range(1, 32)]
-    parts = (cb.LPS_TABLE.reshape(-1), cb.NEXT_STATE_LPS, cb.NEXT_STATE_MPS,
-             renorm)
-    flat = torch.as_tensor(np.concatenate(parts).astype(np.int32),
-                           device=device)
-    return (flat,) + tuple(flat.split([len(p) for p in parts]))
+    return tuple(torch.as_tensor(np.asarray(p, np.int32), device=device)
+                 for p in (cb.LPS_TABLE.reshape(-1), cb.NEXT_STATE_LPS,
+                           cb.NEXT_STATE_MPS, renorm))
 
 
 def _emit_run(nbytes, zrun, byte, k):
@@ -142,7 +139,7 @@ def _step(state, op):
     rng, low, nbits = state["rng"], state["low"], state["nbits"]
     outstanding, bufbyte = state["outstanding"], state["bufbyte"]
     zrun, nbytes, ctxs = state["zrun"], state["nbytes"], state["ctxs"]
-    _, lps_tab, next_lps, next_mps, renorm = _tables(op.device)
+    lps_tab, next_lps, next_mps, renorm = _tables(op.device)
 
     kind = op & 3
     b = (op >> 10) & 1

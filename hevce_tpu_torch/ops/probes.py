@@ -115,8 +115,8 @@ def build(force: bool = False):
                         deps=[HEADER])
 
 
-def imma_counts(path) -> dict:
-    """IMMA (integer tensor-core) instructions per kernel in the built
+def sass_counts(path, opcode) -> dict:
+    """instructions whose text holds `opcode`, per kernel, in the built
     library's SASS, read with cuobjdump: {kernel symbol: count}."""
     tool = shutil.which("cuobjdump") or str(
         pathlib.Path(_build.nvcc()).parent / "cuobjdump")
@@ -127,9 +127,15 @@ def imma_counts(path) -> dict:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn is not None and "IMMA" in line:
+        elif fn is not None and opcode in line:
             counts[fn] += 1
     return counts
+
+
+def imma_counts(path) -> dict:
+    """IMMA (integer tensor-core) instructions per kernel in the built
+    library's SASS: {kernel symbol: count}."""
+    return sass_counts(path, "IMMA")
 
 
 def _load():

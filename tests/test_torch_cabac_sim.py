@@ -17,6 +17,7 @@ from hevce_tpu.ops import cabac_sim as jsim
 from hevce_tpu_torch.bitstream import cabac as tcb
 from hevce_tpu_torch.ops import cabac_scan
 from hevce_tpu_torch.ops import cabac_sim as sim
+from hevce_tpu_torch.tools import bench_k2
 
 # the test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -77,15 +78,94 @@ def test_tables_equal_jax_package():
 
 
 def test_k2_table_tensor_layout():
-    """K2 reads the LPS range table at 0, the LPS next-state table at 256
-    and the MPS one at 384 (csrc/cabac_scan.cu) of the tensor the plain
-    simulation indexes through views."""
-    flat, lps, next_lps, next_mps, _ = sim._tables(torch.device("cpu"))
+    """K2 reads the LPS range table packed as 64 little-endian words (byte q
+    of word s = LPS_TABLE[s, q]) at 0 and the LPS next-state table at 64
+    (csrc/cabac_scan.cu): unpacked, they are the JAX package's tables."""
+    tab = cabac_scan.kernel_tables(torch.device("cpu"))
+    assert tab.dtype == torch.int32 and tab.shape == (64 + 128,)
+    words = tab[:64].numpy().view(np.uint32)
+    unpacked = np.stack([(words >> (8 * q)) & 0xFF for q in range(4)], 1)
+    np.testing.assert_array_equal(unpacked, jcb.LPS_TABLE)
+    np.testing.assert_array_equal(tab[64:].numpy(), jcb.NEXT_STATE_LPS)
+    # every LPS range fits the byte it is packed in
+    assert 2 <= jcb.LPS_TABLE.min() and jcb.LPS_TABLE.max() <= 255
+
+
+def test_k2_shift_count_from_clz_equals_the_reference():
+    """K2's renormalisation shift min(clz(lps) - 23, 6), clz of a 32-bit
+    word, equals the JAX kernel's five-compare count on every table value."""
+    for lps in np.unique(jcb.LPS_TABLE):
+        li = int(lps) >> 3
+        want = 6 - ((li >= 1) + (li >= 2) + (li >= 4) + (li >= 8)
+                    + (li >= 16))
+        clz = 32 - int(lps).bit_length()
+        assert min(clz - 23, 6) == want, lps
+    np.testing.assert_array_equal(
+        sim._tables(torch.device("cpu"))[3].numpy()[jcb.LPS_TABLE >> 3],
+        np.minimum(32 - np.vectorize(int.bit_length)(
+            jcb.LPS_TABLE.astype(object)) - 23, 6))
+
+
+def test_k2_mps_next_state_arithmetic_equals_the_table():
+    """K2's MPS next state: state s = v >> 1 steps to s + (s < 62), the MPS
+    bit kept, over all 128 packed values (126 / 127 stay put)."""
+    v = np.arange(128)
+    s = v >> 1
+    np.testing.assert_array_equal(((s + (s < 62)) << 1) | (v & 1),
+                                  jcb.NEXT_STATE_MPS)
+    np.testing.assert_array_equal(v + 2 * (s < 62), jcb.NEXT_STATE_MPS)
+
+
+def test_k2_tool_before_tables_are_the_old_layout():
+    """bench_k2 --before hands an earlier K2 source the 512-entry layout it
+    reads: the flat LPS range table, the LPS and the MPS next-state
+    tables."""
+    v = bench_k2.Variant("before", torch.device("cpu"), old_tables=True)
     want = np.concatenate([np.asarray(jcb.LPS_TABLE).reshape(-1),
                            jcb.NEXT_STATE_LPS, jcb.NEXT_STATE_MPS])
-    np.testing.assert_array_equal(flat[:512].numpy(), want)
-    for view, at in ((lps, 0), (next_lps, 256), (next_mps, 384)):
-        assert view.data_ptr() == flat[at:].data_ptr()
+    np.testing.assert_array_equal(v.tables.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", bench_k2.DIAG_KINDS + ("random",
+                                                        "adversarial"))
+def test_k2_tool_strings_are_nop_padded(kind):
+    """the K2 tool's strings keep K2's contract: nops past each lane's
+    count, real ops before it; the plain version runs them."""
+    rng = np.random.default_rng(3)
+    dev = torch.device("cpu")
+    if kind in bench_k2.DIAG_KINDS:
+        state, ops, nops = bench_k2.k2_diag_inputs(dev, rng, kind, 5, 24, 9,
+                                                   17)
+        assert (nops == 17).all()
+    else:
+        state, ops, nops = bench_k2.k2_synthetic_inputs(
+            dev, rng, 5, 24, 9, kind == "adversarial")
+    past = torch.arange(24)[None, :] >= nops[:, None]
+    assert ((ops & 3) == sim.KIND_NOP)[past].all()
+    assert ((ops & 3) != sim.KIND_NOP)[~past].all()
+    assert state["ctxs"].shape == (5, 9)
+    ctx = (ops & 3) == sim.KIND_CTX
+    assert (((ops >> 2) & 0xFF)[ctx] < 9).all()
+    if kind == "one_slot":
+        assert (((ops >> 2) & 0xFF)[ctx] == 0).all()
+    got = cabac_scan.scan_plain(state, ops, nops)
+    assert (sim.bit_len(got) > sim.bit_len(state)).all()
+
+
+def test_k2_tool_compare_raises_on_a_difference():
+    state = sim.initial_state(3, 2)
+    assert bench_k2.compare(state, dict(state), "here") == 0
+    bad = dict(state, nbytes=state["nbytes"] + torch.tensor([0, 0, 2],
+                                                            dtype=torch.int32))
+    with pytest.raises(bench_k2.Mismatch, match="nbytes .* max \\|err\\| 2"):
+        bench_k2.compare(bad, state, "here")
+
+
+def test_k2_tool_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the tool runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_k2.main([])
 
 
 # ------------------------------------------------------------------ golden

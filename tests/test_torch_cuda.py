@@ -6,6 +6,9 @@ skip it there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import json
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +18,8 @@ from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, coef_ops, fused_eval,
                                  probes)
 from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
-from hevce_tpu_torch.tools import bench_fused, cuda_probe, profile_front
+from hevce_tpu_torch.tools import (bench_fused, bench_k2, cuda_probe,
+                                   profile_front)
 from hevce_tpu_torch.utils import timing
 from hevce_tpu_torch.utils.imageio import write_pgm
 from hevce_tpu_torch.utils.tracing import PhaseTimer
@@ -86,33 +90,53 @@ def test_card_records_equal_cpu_records(cuda_device):
     assert bufs[0] == bufs[1]
 
 
-def _k2_inputs(lanes, L, P, seed):
-    """random op strings over a P-slot palette, nop-padded past each lane's
-    count, plus runs of all-ones and all-zero bypass chunks."""
+def _k2_inputs(lanes, L, P, seed, strings="mixed", qpd6=None):
+    """op strings over a P-slot palette, nop-padded past each lane's count
+    (lane 0 has none, lane 1 all L): "mixed" random kinds plus runs of
+    all-ones and all-zero bypass chunks; "one_slot" context bins that all
+    hit slot P - 1 (each forwards its new value to the next); "alternating"
+    context bins on two slots in turn; "bypass" bypass runs only."""
     rng = np.random.default_rng(seed)
     kind = rng.integers(0, 3, (lanes, L))
-    ctx = (cabac_sim.KIND_CTX | (rng.integers(0, P, (lanes, L)) << 2)
-           | (rng.integers(0, 2, (lanes, L)) << 10))
+    bins = rng.integers(0, 2, (lanes, L)) << 10
+    ctx = cabac_sim.KIND_CTX | (rng.integers(0, P, (lanes, L)) << 2) | bins
     n = rng.integers(1, 9, (lanes, L))
     byp = (cabac_sim.KIND_BYPASS | (n << 2)
            | ((rng.integers(0, 256, (lanes, L)) & ((1 << n) - 1)) << 6))
     term = cabac_sim.KIND_TERM | ((rng.random((lanes, L)) < 0.05) << 10)
-    ops = np.where(kind == 0, ctx, np.where(kind == 1, byp, term))
-    ops[:lanes // 4] = cabac_sim.pack_bypass(0xFF, 8)
-    ops[lanes // 4:lanes // 2:2] = cabac_sim.pack_bypass(0, 8)
+    if strings == "mixed":
+        ops = np.where(kind == 0, ctx, np.where(kind == 1, byp, term))
+        ops[:lanes // 4] = cabac_sim.pack_bypass(0xFF, 8)
+        ops[lanes // 4:lanes // 2:2] = cabac_sim.pack_bypass(0, 8)
+    elif strings == "one_slot":
+        ops = cabac_sim.KIND_CTX | ((P - 1) << 2) | bins
+    elif strings == "alternating":
+        two = np.where(np.arange(L) % 2 == 0, 0, P - 1)
+        ops = cabac_sim.KIND_CTX | (two[None, :] << 2) | bins
+    else:
+        assert strings == "bypass"
+        ops = byp
     nops = rng.integers(0, L + 1, lanes)
+    nops[:2] = 0, L
     ops[np.arange(L)[None, :] >= nops[:, None]] = cabac_sim.KIND_NOP
-    state = cabac_sim.initial_state(lanes, int(seed) % 5)
+    state = cabac_sim.initial_state(
+        lanes, int(seed) % 5 if qpd6 is None else qpd6)
     state["ctxs"] = state["ctxs"][:, :P].contiguous()
     return state, torch.from_numpy(ops.astype(np.int32)), \
         torch.from_numpy(nops.astype(np.int32))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes,L,P", [(630, 256, 39), (1260, 768, 69),
-                                       (1260, 2048, 67), (37, 100, 142)])
-def test_k2_kernel_matches_plain_on_card(cuda_device, lanes, L, P):
-    state, ops, nops = _k2_inputs(lanes, L, P, lanes + L + P)
+@pytest.mark.parametrize("lanes,L,P,strings,qpd6", [
+    (630, 256, 39, "mixed", None), (1260, 768, 69, "mixed", None),
+    (1260, 2048, 67, "mixed", None), (37, 100, 142, "mixed", None),
+    (630, 256, 39, "one_slot", 0), (70, 300, 59, "one_slot", 4),
+    (1260, 768, 69, "alternating", 4), (33, 200, 2, "alternating", 0),
+    (70, 300, 39, "bypass", 0), (33, 64, 67, "mixed", 0),
+    (95, 129, 39, "mixed", 4)])
+def test_k2_kernel_matches_plain_on_card(cuda_device, lanes, L, P, strings,
+                                         qpd6):
+    state, ops, nops = _k2_inputs(lanes, L, P, lanes + L + P, strings, qpd6)
     dstate = {k: v.to(cuda_device) for k, v in state.items()}
     n0 = cabac_scan.LAUNCHES
     got = cabac_scan.advance_rates(dstate, ops.to(cuda_device),
@@ -303,3 +327,27 @@ def test_card_times_after_a_graph_capture(cuda_device):
     for _ in range(30):
         assert timing.card_kernels(lambda: [step() for _ in range(5)])
     assert timing.busy_events_ms(step, 50) < 0.5 * timing.cuda_ms(step, 50)
+
+
+@pytest.mark.cuda
+def test_k2_tool_on_card(cuda_device):
+    """bench_k2 holds K2 and its design steps against the plain version at
+    the four lockstep shapes and times them (ns per op of the longest
+    lane), and its diagnostic strings too. It runs last: after its ~100
+    profiler sessions, one of the 30 sessions that
+    test_card_times_after_a_graph_capture runs after a CUDA-graph capture
+    recorded no kernel on the H100 (card_ms retries such a session)."""
+    lines = []
+    res = bench_k2.run(cuda_device, out=lines.append, diag=True, steps=True)
+    variants = 1 + len(bench_k2.STEP_VARIANTS)
+    assert res["max_abs_err"] == 0
+    assert res["checked"] == 4 * 3 * variants + len(bench_k2.DIAG_KINDS)
+    assert [r["shape"] for r in res["shapes"]] == ["pu", "node8", "node16",
+                                                   "node32"]
+    assert all(0 < r["empty_ms"] < r["ms"] and r["ns_per_op"] > 0
+               for r in res["shapes"])
+    assert set(res["variants"]) == {n for n, _ in bench_k2.STEP_VARIANTS}
+    assert set(res["diag"]) == set(bench_k2.DIAG_KINDS)
+    assert not any(re.search(r"\b[1-9]\d* bytes spill", ln)
+                   for lns in res["ptxas"].values() for ln in lns)
+    assert json.loads(lines[-1])["ms_per_ctu"] == res["ms_per_ctu"]

@@ -220,26 +220,56 @@ def test_k1_imma_counts_by_size_read_the_mangled_instantiations():
     assert fused_eval.imma_by_size(counts) == {4: 0, 8: 22, 16: 11, 32: 33}
 
 
-def test_build_redoes_a_library_when_its_header_changes(tmp_path,
-                                                        monkeypatch):
+def _stand_in_build(tmp_path, monkeypatch):
+    """runtime/build.build of tmp_path/k.cu with the header k.cuh, through
+    a stand-in compiler that writes its output and counts its runs in
+    tmp_path/log. Returns (build(flags), src, hdr, log)."""
     from hevce_tpu_torch.runtime import build as _build
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
     src, hdr, log = (tmp_path / n for n in ("k.cu", "k.cuh", "log"))
     src.write_text("x")
     hdr.write_text("y")
-    # a stand-in compiler: writes its output and counts its runs
+    log.write_text("")
     cmd = [sys.executable, "-c",
-           "import sys; open(sys.argv[2], 'w').write('lib'); "
+           "import sys; open(sys.argv[-1], 'w').write('lib'); "
            f"open({str(log)!r}, 'a').write('.')"]
-    build = lambda: _build.build(src, "libk.so", cmd, deps=[hdr])
+    return (lambda *flags: _build.build(src, "libk.so", cmd + list(flags),
+                                        deps=[hdr]),
+            src, hdr, log)
+
+
+def test_build_redoes_a_library_when_its_header_changes(tmp_path,
+                                                        monkeypatch):
+    build, src, hdr, log = _stand_in_build(tmp_path, monkeypatch)
     out, _ = build()
     assert out.read_text() == "lib" and log.read_text() == "."
-    build()
-    assert log.read_text() == "."                  # up to date: not rebuilt
-    later = out.stat().st_mtime + 10
+    assert out.name.startswith("libk.") and out.suffix == ".so"
+    old = out.stat().st_mtime - 1000
+    hdr.write_text("y2")                 # new contents, an older time
+    os.utime(hdr, (old, old))
+    out2, _ = build()
+    assert log.read_text() == ".." and out2 != out and out2.exists()
+
+
+def test_build_redoes_a_library_when_its_flags_change(tmp_path,
+                                                      monkeypatch):
+    build, src, hdr, log = _stand_in_build(tmp_path, monkeypatch)
+    out, _ = build("-DA=1")
+    out2, _ = build("-DA=2")
+    assert log.read_text() == ".." and out2 != out
+    assert build("-DA=1")[0] == out and log.read_text() == ".."
+
+
+def test_build_keeps_the_library_of_an_untouched_tree(tmp_path,
+                                                      monkeypatch):
+    build, src, hdr, log = _stand_in_build(tmp_path, monkeypatch)
+    out, text = build()
+    later = out.stat().st_mtime + 1000
+    os.utime(src, (later, later))        # touched, not changed
     os.utime(hdr, (later, later))
-    build()
-    assert log.read_text() == ".."                 # the header is newer
+    assert build() == (out, "") and log.read_text() == "."
+    src.write_text("x2")
+    assert build()[0] != out and log.read_text() == ".."
 
 
 # ------------------------------------------------------------------ tools
