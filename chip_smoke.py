@@ -40,10 +40,11 @@ Phases, each printed as one JSON line:
             59 slots), on the op strings of real candidate blocks, random
             strings and adversarial ones (0xFF / carry / 0x00 runs): the 7
             coder scalars and the palette must be equal (tolerance 0). Then
-            per shape the kernel's card time (profiler), ns per op of the
-            longest lane, the call time (CUDA events), the plain version's
-            call time and the bound. Inputs and checks come from the K2
-            tool (tools/bench_k2).
+            per shape the card time of the wrapper's call (profiler; K2 and
+            its stack of the scalars) and of the kernel alone, ns per op of
+            the longest lane, the call time (CUDA events), the plain
+            version's call time and the bound. Inputs, checks and times
+            come from the K2 tool (tools/bench_k2).
   slice     the main path, as a user calls it: encode_many_fast on 18
             synthetic 768x512 and 6 synthetic 512x768 images (qpd6=2,
             batch=18, RMD (12, 4), 'pre' prices, lean records, host pack).
@@ -66,10 +67,10 @@ Phases, each printed as one JSON line:
             CPU: the lean record buffers must be byte-identical.
 
 Then the seconds each phase took, how many profiler sessions recorded no
-kernel and how many card times came from CUDA events instead (both 0 when
-the profiler worked throughout, utils/timing.card_ms), the card's name and
-power limit
-(nvidia-smi), the kernels line and, as the last line, {"ok": true,
+kernel or lost launches, and how many card times came from
+CUDA events instead (both 0 when the profiler worked throughout,
+utils/timing.card_ms), the card's name and power limit (nvidia-smi), the
+kernels line and, as the last line, {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -87,9 +88,14 @@ import time
 
 import numpy as np
 
+# the lockstep path's batch, qpd6 and K2 launches per CTU (PU_PER_CTU, and
+# NODE_PER_CTU by CU size), shared with the K2 tool; the slice phase runs
+# at the same batch and qpd6. The card's peak rates for the bounds.
+from hevce_tpu_torch.tools.bench_k2 import (BATCH, NODE_PER_CTU, PU_PER_CTU,
+                                            QPD6)
+from hevce_tpu_torch.utils.device import HBM_BYTES_PER_S, INT32_OPS_PER_S
+
 ROOT = pathlib.Path(__file__).resolve().parent
-QPD6 = 2
-BATCH = 18
 LANES = 288                      # B * R for a 768x512 batch of 18 images
 SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
           (32, 4), (32, 12), (8, 35), (16, 35), (32, 35)]
@@ -99,17 +105,8 @@ SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
 PER_FRONT = {(8, 12): 16, (4, 4): 64, (4, 35): 64, (16, 12): 4, (8, 4): 16,
              (32, 12): 1, (16, 4): 4}
 LAUNCHES_PER_FRONT = sum(PER_FRONT.values())            # 169
-# NVIDIA H100 SXM peaks (data sheet): 3.35 TB/s of HBM; K1's arithmetic is
-# int32 multiply-add on the CUDA cores, 64 lanes per SM against FP32's 128,
-# so half of the 67 TFLOP/s FP32 rate (a multiply-add counts as 2 ops)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
-# the lockstep path: a batch of 18 images 64x96 (6 CTUs); per CTU 21 node
-# events (sz 32: 1, 16: 4, 8: 16) and 64 PU events (csrc/hevce_host.cpp),
-# as in tools/bench_k2
+# the lockstep path: a batch of 18 images 64x96 (6 CTUs)
 LOCK_SHAPE = (64, 96)
-NODE_PER_CTU = {32: 1, 16: 4, 8: 16}
-PU_PER_CTU = 64
 # K1 launches per CTU there, all at (sz, 35) and 18 rows: a PU event's
 # 2Nx2N, a node event's 2Nx2N and its four sub-TUs at sz / 2
 K1_PER_CTU = {4: 128, 8: 32, 16: 8, 32: 1}
@@ -323,15 +320,15 @@ def k1_lockstep_calls(torch, dev, rng, qpd6):
 def phase_k2(torch, dev, rng):
     """K2 against its plain version at the lockstep path's four shapes on
     real-block, random and adversarial strings (tolerance 0), then per
-    shape the kernel's card ms (torch.profiler), ns per op of the longest
-    lane, its call ms (CUDA events, the wrapper's enqueue included), the
-    plain version's call ms and the bound. The inputs and the checks are
+    shape the card ms of the wrapper's call (torch.profiler; K2 and its
+    stack of the scalars) and of K2 alone, ns per op of the longest lane,
+    the call ms (CUDA events, the wrapper's enqueue included), the plain
+    version's call ms and the bound. The inputs, checks and card times are
     the K2 tool's (python -m hevce_tpu_torch.tools.bench_k2)."""
     from hevce_tpu_torch.ops import cabac_scan
     from hevce_tpu_torch.tools import bench_k2 as bk
     from hevce_tpu_torch.utils import timing
 
-    k2 = bk.Variant("k2", dev)
     max_err, checked, shapes = 0, 0, []
     for name, sz, lanes, cap, P, per_ctu in bk.k2_shapes():
         block = bk.k2_block_inputs(dev, rng, sz)
@@ -363,20 +360,23 @@ def phase_k2(torch, dev, rng):
             checked += 1
         state, ops, nops = block
         shapes.append(dict(
-            bk.shape_row(name, per_ctu, k2.ms(state, ops, nops), state,
-                         nops), cap=cap,
+            bk.shape_row(name, per_ctu, state, ops, nops), cap=cap,
             call_ms=timing.cuda_ms(
                 lambda: cabac_scan.advance_rates(state, ops, nops), 50),
             plain_ms=plain_ms))
     emit({"phase": "kernels", "kernel": "cabac_scan", "checked": checked,
           "exact": True, "max_abs_err": max_err, "library_ms": None,
           "library_note": "no single PyTorch call computes a CABAC rate scan",
-          "ms_note": "ms is the kernel's own card time; call_ms the "
-                     "wrapper's (its stack of the scalars included)",
+          "ms_note": "ms is the card time of the wrapper's call (K2 and "
+                     "its stack of the scalars), kernel_ms of K2 alone, "
+                     "call_ms the call's CUDA-event time (its enqueue "
+                     "included)",
           "plain_note": "plain_ms is CUDA-event time of the check's call "
                         "on the real-block strings (its thousands of small "
                         "launches included)",
-          "ms_per_ctu": bk.per_ctu_ms(shapes), "shapes": shapes})
+          "ms_per_ctu": bk.per_ctu_ms(shapes),
+          "kernel_ms_per_ctu": bk.per_ctu_ms(shapes, "kernel_ms"),
+          "shapes": shapes})
     return max_err, shapes
 
 
@@ -898,13 +898,15 @@ def main():
             "bound_ms", lambda s: s["bound_by"] == "operations") * 2
         > per_ctu("bound_ms") else "bytes",
         "library_ms": None, "call_ms": per_ctu("call_ms"),
+        "kernel_ms": per_ctu("kernel_ms"),
         "ns_per_op": {s["shape"]: s["ns_per_op"] for s in k2_shapes_},
         "basis": f"one CTU of the lockstep path with node_rates on at a "
                  f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
                  f"21 node launches at 1260 lanes), on op strings of "
-                 f"synthetic blocks, the kernel's own card time; "
-                 f"ns_per_op per launch over its longest lane; launches "
-                 f"count the three lockstep runs"}] + [
+                 f"synthetic blocks; ms the wrapper's card time (K2 and its "
+                 f"stack of the scalars), kernel_ms K2's alone; ns_per_op "
+                 f"per call over its longest lane; launches count the three "
+                 f"lockstep runs"}] + [
         dict(r, route="cuda", source="hevce_tpu_torch/csrc/probes.cu",
              encode_launches=encode_probe_launches[r["name"]],
              basis="one call at the probe's shape; launches count the run "

@@ -47,14 +47,6 @@
 // lanes of a warp that touch different slots hit 32 different banks; tiles
 // are padded to 33 columns for the same reason.
 //
-// K2_STEPS (default 7, all) builds the design with some of its steps, for
-// the measurement of each (hevce_tpu_torch/tools/bench_k2.py --steps): the
-// straight-line path is always there (step 1); bit 1 adds the packed LPS
-// word off the range chain (step 2; without it the LPS byte loads at an
-// address that depends on the range and the shift count takes five
-// compares), bit 2 the early context load (step 3), bit 4 the
-// register-staged tiles (step 4).
-//
 // int32 semantics follow the reference (and PyTorch): sums and left shifts
 // wrap, so they are computed in uint32_t and cast back (a signed overflow,
 // or a left shift of a negative int, is undefined in C++); `low >> sh` is an
@@ -65,16 +57,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef K2_STEPS
-#define K2_STEPS 7
-#endif
-
 namespace {
-
-constexpr bool kPackedLps = K2_STEPS & 1;     // step 2
-constexpr bool kEarlyContext = K2_STEPS & 2;  // step 3
-constexpr bool kStagedTiles = K2_STEPS & 4;   // step 4
-static_assert(K2_STEPS >= 0 && K2_STEPS <= 7, "K2_STEPS is a 3-bit mask");
 
 constexpr int kWarp = 32;
 constexpr int kLps4 = 64;             // packed LPS ranges, 4 bytes a state
@@ -118,10 +101,10 @@ struct Coder {
 
 // One op on the coder, without a branch. v is the value of the op's slot
 // (used by a context bin only), w the packed LPS word of its state,
-// lps4v[v] (step 2). Returns the slot's value after the op: v itself
-// unless the op is a context bin.
+// lps4v[v]. Returns the slot's value after the op: v itself unless the op
+// is a context bin.
 __device__ __forceinline__ int advance(Coder& c, int op, int v, int w,
-                                       const int* lps4v, const int* next_lps) {
+                                       const int* next_lps) {
   // the kind's predicates, pinned: selects keyed on one value compared
   // with several constants are otherwise merged into a switch, a branch
   const int kind = op & 3;
@@ -132,16 +115,9 @@ __device__ __forceinline__ int advance(Coder& c, int op, int v, int w,
   const int rng = c.rng;
 
   // context-coded bin (reference src/HEVCe.c:914-933)
-  int lps, nbit;
-  if constexpr (kPackedLps) {
-    lps = static_cast<int>(__byte_perm(static_cast<uint32_t>(w), 0u,
-                                       0x4440u | ((rng >> 6) & 3)));
-    nbit = min(__clz(lps) - 23, 6);
-  } else {
-    lps = reinterpret_cast<const uint8_t*>(lps4v)[v * 4 + ((rng >> 6) & 3)];
-    const int li = lps >> 3;
-    nbit = 6 - ((li >= 1) + (li >= 2) + (li >= 4) + (li >= 8) + (li >= 16));
-  }
+  const int lps = static_cast<int>(__byte_perm(static_cast<uint32_t>(w), 0u,
+                                               0x4440u | ((rng >> 6) & 3)));
+  int nbit = min(__clz(lps) - 23, 6);
   const int r1 = rng - lps;
   const bool is_lps = ((op >> 10) ^ v) & 1;    // the bin is not the MPS
   int ren1 = r1 < 256;
@@ -252,10 +228,8 @@ k2_kernel(const int* __restrict__ ops, int L, const int* __restrict__ nops,
   }
   // the first tile's loads are in flight while the palette is copied
   int staged[kWarp];
-  if constexpr (kStagedTiles) {
 #pragma unroll
-    for (int r = 0; r < kWarp; ++r) staged[r] = fetch(0, r);
-  }
+  for (int r = 0; r < kWarp; ++r) staged[r] = fetch(0, r);
   // the warp's palette rows are contiguous: element i = r * P + p of them
   // is slot p of lane base + r. They are read with coalesced loads, up to
   // kChunk of them in flight a thread; a lane past the last gets slot
@@ -290,46 +264,30 @@ k2_kernel(const int* __restrict__ ops, int L, const int* __restrict__ nops,
   const auto slot_of = [P](int op) { return min((op >> 2) & 0xFF, P - 1); };
   int* ctx_t = ctx + tid;                // this lane's slot p: ctx_t[p * 32]
   for (int k0 = 0; k0 < nmax; k0 += kWarp) {
-    if constexpr (kStagedTiles) {
 #pragma unroll
-      for (int r = 0; r < kWarp; ++r) tile[r][tid] = staged[r];
-      __syncwarp();
-      if (k0 + kWarp < nmax) {
+    for (int r = 0; r < kWarp; ++r) tile[r][tid] = staged[r];
+    __syncwarp();
+    if (k0 + kWarp < nmax) {
 #pragma unroll
-        for (int r = 0; r < kWarp; ++r) staged[r] = fetch(k0 + kWarp, r);
-      }
-    } else {
-#pragma unroll 8
-      for (int r = 0; r < kWarp; ++r) tile[r][tid] = fetch(k0, r);
-      __syncwarp();
+      for (int r = 0; r < kWarp; ++r) staged[r] = fetch(k0 + kWarp, r);
     }
     const int* row = tile[tid];
     const int kend = min(kWarp, nmax - k0);
-    if constexpr (kEarlyContext) {
-      int op = row[0];
-      int slot = slot_of(op);
-      int v = ctx_t[slot * kWarp];
+    int op = row[0];
+    int slot = slot_of(op);
+    int v = ctx_t[slot * kWarp];
 #pragma unroll 2
-      for (int i = 0; i < kend; ++i) {
-        // op i + 1 (the pad column past the tile's end: never used) and its
-        // slot's value, loaded before op i stores its own slot
-        const int op_n = row[i + 1];
-        const int slot_n = slot_of(op_n);
-        const int v_n = ctx_t[slot_n * kWarp];
-        const int nv = advance(c, op, v, lps4v[v], lps4v, next_lps);
-        ctx_t[slot * kWarp] = nv;
-        v = slot_n == slot ? nv : v_n;
-        op = op_n;
-        slot = slot_n;
-      }
-    } else {
-#pragma unroll 2
-      for (int i = 0; i < kend; ++i) {
-        const int op = row[i];
-        int* cv = ctx_t + slot_of(op) * kWarp;
-        const int v = *cv;
-        *cv = advance(c, op, v, lps4v[v], lps4v, next_lps);
-      }
+    for (int i = 0; i < kend; ++i) {
+      // op i + 1 (the pad column past the tile's end: never used) and its
+      // slot's value, loaded before op i stores its own slot
+      const int op_n = row[i + 1];
+      const int slot_n = slot_of(op_n);
+      const int v_n = ctx_t[slot_n * kWarp];
+      const int nv = advance(c, op, v, lps4v[v], next_lps);
+      ctx_t[slot * kWarp] = nv;
+      v = slot_n == slot ? nv : v_n;
+      op = op_n;
+      slot = slot_n;
     }
     __syncwarp();
   }

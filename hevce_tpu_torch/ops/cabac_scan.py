@@ -30,7 +30,7 @@ MAX_P = 256           # palette slots a context op can address (8-bit index)
 LAUNCHES = 0          # kernel launches made by advance_rates (CUDA route)
 
 _lock = threading.Lock()
-_libs = {}            # loaded libraries by (source, -D flags)
+_lib = None
 
 
 def scan_plain(state, ops, nops):
@@ -53,42 +53,40 @@ def kernel_tables(device: torch.device):
         device=device)
 
 
-def build(force: bool = False, defines=(), source=SOURCE):
-    """Compile csrc/cabac_scan.cu (or `source`, with the -D flags
-    `defines`) for sm_90a (once, or again with force=True; see
-    runtime/build). Returns (library path, compiler output, which holds
-    ptxas's register and shared-memory report)."""
-    return _build.build(source, LIB_NAME,
-                        _build.nvcc_cmd(source, defines), force)
+def build(force: bool = False):
+    """Compile csrc/cabac_scan.cu for sm_90a (once, or again with
+    force=True; see runtime/build). Returns (library path, compiler output,
+    which holds ptxas's register and shared-memory report)."""
+    return _build.build(SOURCE, LIB_NAME, _build.nvcc_cmd(SOURCE), force)
 
 
-def load(defines=(), source=SOURCE):
-    """The built library of `source` with `defines` (K2 itself by default),
-    its launch function typed."""
+def load():
+    """The built library, its launch function typed."""
+    global _lib
     with _lock:
-        k = (str(source), tuple(defines))
-        if k not in _libs:
-            path, _ = build(defines=defines, source=source)
+        if _lib is None:
+            path, _ = build()
             lib = ctypes.CDLL(str(path))
             lib.hevce_k2_launch.restype = ctypes.c_int
             lib.hevce_k2_launch.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 4)
-            _libs[k] = lib
-        return _libs[k]
+            _lib = lib
+        return _lib
 
 
-def launch(lib, st_in, ctxs, ops, nops, tables, ctx_out=None):
-    """Launch the kernel of `lib` on the current stream: st_in (7, lanes)
-    int32 coder scalars, ctxs (lanes, P), ops (lanes, L), nops (lanes,),
-    `tables` as the kernel reads them, all on one CUDA device and checked
-    by the caller; ctx_out (lanes, P) receives the final palette, or None.
-    Returns st_out (7, lanes)."""
+def launch(st_in, ctxs, ops, nops, ctx_out=None):
+    """Launch K2 on the current stream: st_in (7, lanes) int32 coder
+    scalars, ctxs (lanes, P), ops (lanes, L), nops (lanes,), all on one
+    CUDA device and checked by the caller; ctx_out (lanes, P) receives the
+    final palette, or None. Returns st_out (7, lanes). Not counted in
+    LAUNCHES: advance_rates counts its own launches."""
     lanes, L = ops.shape
     st_out = torch.empty_like(st_in)
+    tables = kernel_tables(ops.device)
     with torch.cuda.device(ops.device):
-        rc = lib.hevce_k2_launch(
+        rc = load().hevce_k2_launch(
             ops.data_ptr(), lanes, L, nops.data_ptr(), st_in.data_ptr(),
             ctxs.data_ptr(), ctxs.shape[1], tables.data_ptr(),
             st_out.data_ptr(),
@@ -139,8 +137,7 @@ def advance_rates(state, ops, nops, want_ctxs: bool = False):
     if ops.shape[0] == 0:
         st_out = torch.empty_like(st_in)
     else:
-        st_out = launch(load(), st_in, state["ctxs"], ops, nops,
-                        kernel_tables(ops.device), ctx_out)
+        st_out = launch(st_in, state["ctxs"], ops, nops, ctx_out)
         LAUNCHES += 1
     out = {f: st_out[i] for i, f in enumerate(sim.FIELDS)}
     if want_ctxs:

@@ -63,13 +63,11 @@ def build(src: pathlib.Path, name: str, cmd: list, force: bool = False,
         return out, r.stdout + r.stderr
 
 
-def nvcc_cmd(src: pathlib.Path, defines=()) -> list:
+def nvcc_cmd(src: pathlib.Path) -> list:
     """nvcc for sm_90a into a shared library with a plain C interface,
-    ptxas's register, shared-memory and spill report included; `defines`
-    are -D flags (NAME or NAME=VALUE)."""
+    ptxas's register, shared-memory and spill report included."""
     return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *(f"-D{d}" for d in defines), str(src)]
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", str(src)]
 
 
 def nvcc() -> str:

@@ -8,39 +8,29 @@ lanes, caps 768 / 2048 / 7168, 69 / 67 / 59 slots. For each:
     K1 and the op generation), on random strings and on adversarial ones
     (0xFF / carry / 0x00 runs): the 7 coder scalars and the palette,
     tolerance 0;
-  * the card ms of one launch (torch.profiler, the kernel alone) on the
-    real strings, ns per op of the longest lane (ms / max_nops) and the
-    bound (each op and scalar moved once at 3.35 TB/s, or 30 int32
-    operations an op at 33.5 TOP/s, whichever is longer);
+  * on the real strings, the card ms (torch.profiler) of one advance_rates
+    call as the encoder makes it (K2 and the wrapper's stack of the
+    scalars), and beside it of K2 alone; ns per op of the longest lane
+    (the call's ms / max_nops) and the bound (each op and scalar moved
+    once at 3.35 TB/s, or 30 int32 operations an op at 33.5 TOP/s,
+    whichever is longer);
+  * the same call with no op to run (its launches, prologue and epilogue),
+    and the rest of its time over max_nops: the marginal ns of an op;
 then ms per lockstep CTU with node rates on (64 PU, 16 node8, 4 node16 and
-1 node32 launch).
-
-Each shape also times K2 with no op to run (its launch, prologue and
-epilogue), and the rest of its time over max_nops: the marginal ns of an op.
+1 node32 call), of the calls and of the kernel alone.
 
 --diag also times, at the node32 shape and the real strings' longest count,
 strings of context bins only, bypass runs only, and context bins that all
 hit one slot, each held against the plain version: their gap to the real
 strings shows what the mix of kinds and the context chain cost.
---steps times the kernel built with some of the steps of its design
-(K2_STEPS in csrc/cabac_scan.cu): steps 1, 1-2 and 1-3, and all but step
-2 or step 3 (all four is the kernel itself), at the four shapes, each held
-against the plain version. --before FILE does the same for another source
-of K2 with the same C interface that reads the 512-entry table of
-ops/cabac_sim._tables (the LPS range, LPS and MPS next-state tables), such
-as an earlier commit's csrc/cabac_scan.cu, so two versions compare on one
-card in one call.
 
 Each result is a line; the last line is one JSON object of them all. A
 difference from the plain version exits non-zero. It needs a CUDA device.
 
-Usage: python -m hevce_tpu_torch.tools.bench_k2 [--diag] [--steps]
-           [--before FILE] [--seed N]
+Usage: python -m hevce_tpu_torch.tools.bench_k2 [--diag] [--seed N]
 """
 import argparse
 import json
-import pathlib
-import threading
 
 import numpy as np
 import torch
@@ -49,18 +39,17 @@ from hevce_tpu_torch.ops import cabac_scan
 from hevce_tpu_torch.ops import cabac_sim as cs
 from hevce_tpu_torch.utils import device as _device
 from hevce_tpu_torch.utils import timing
+from hevce_tpu_torch.utils.device import HBM_BYTES_PER_S, INT32_OPS_PER_S
 
+# the lockstep path as chip_smoke.py drives it: a batch of 18 images at
+# qpd6 2; per CTU 64 PU events and, with node rates, 21 node events (sz 32:
+# 1, 16: 4, 8: 16), each one K2 launch (csrc/hevce_host.cpp)
 QPD6 = 2
 BATCH = 18
-# per CTU of the lockstep path: 64 PU events and, with node rates, 21 node
-# events (sz 32: 1, 16: 4, 8: 16), each one K2 launch
 PU_PER_CTU = 64
 NODE_PER_CTU = {32: 1, 16: 4, 8: 16}
-# NVIDIA H100 SXM (data sheet): 3.35 TB/s of HBM; int32 at half the 67
-# TFLOP/s FP32 rate. K2's work per op: decoding the op word, the bin update
-# and the refill are at least 30 int32 operations
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
+# K2's work per op: decoding the op word, the bin update and the refill
+# are at least 30 int32 operations
 K2_OPS_PER_OP = 30
 REPS = 20
 
@@ -236,124 +225,75 @@ def compare(got, want, where):
     return worst
 
 
-class Variant:
-    """a build of a K2 source (-D flags `defines`) and the table tensor it
-    reads; `old_tables` for a source that reads ops/cabac_sim._tables's
-    512-entry layout."""
-
-    def __init__(self, name, dev, defines=(), source=cabac_scan.SOURCE,
-                 old_tables=False):
-        self.name, self.defines, self.source = name, tuple(defines), source
-        self.tables = (torch.cat(cs._tables(dev)[:3]) if old_tables
-                       else cabac_scan.kernel_tables(dev))
-
-    def build(self):
-        return cabac_scan.build(defines=self.defines, source=self.source)
-
-    def __call__(self, state, ops, nops, want_ctxs=False):
-        st_in = torch.stack([state[f] for f in cs.FIELDS])
-        ctx_out = torch.empty_like(state["ctxs"]) if want_ctxs else None
-        st_out = cabac_scan.launch(
-            cabac_scan.load(self.defines, self.source), st_in,
-            state["ctxs"], ops, nops, self.tables, ctx_out)
-        out = {f: st_out[i] for i, f in enumerate(cs.FIELDS)}
-        if want_ctxs:
-            out["ctxs"] = ctx_out
-        return out
-
-    def ms(self, state, ops, nops):
-        """card ms of one launch (the kernel alone: its scalars stacked
-        once, outside the timed calls)."""
-        lib = cabac_scan.load(self.defines, self.source)
-        st_in = torch.stack([state[f] for f in cs.FIELDS])
-        return timing.card_ms(lambda: cabac_scan.launch(
-            lib, st_in, state["ctxs"], ops, nops, self.tables), REPS)
-
-
-def build_all(variants):
-    """build every variant at once (one nvcc each); returns {name: ptxas
-    lines (registers, spills)}."""
-    logs, errs = {}, []
-
-    def one(v):
-        try:
-            _, log = v.build()
-            logs[v.name] = [ln.strip() for ln in log.splitlines()
-                            if "registers" in ln or "spill" in ln]
-        except Exception as e:          # reported below
-            errs.append(f"{v.name}: {e}")
-
-    threads = [threading.Thread(target=one, args=(v,)) for v in variants]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errs:
-        raise RuntimeError("building K2: " + " | ".join(errs))
-    return logs
-
-
-# builds of K2 with some of its design steps (bit 1 step 2, bit 2 step 3,
-# bit 4 step 4; step 1 is always there; all four is K2 itself): the name
-# lists the steps
-STEP_VARIANTS = (("s1", 0), ("s12", 1), ("s123", 3), ("s134", 6),
-                 ("s124", 5))
 SASS_OPCODES = ("BSSY", "BRA", "FLO")
 
 
-def sass_stats(v):
-    """instructions of k2_kernel in variant v's SASS, by opcode: BSSY opens
-    a region where the warp's lanes may branch apart, BRA is any branch
-    (loops included), FLO the count of leading zeros."""
+def sass_stats(path):
+    """instructions of k2_kernel in the library at `path`, by opcode: BSSY
+    opens a region where the warp's lanes may branch apart, BRA is any
+    branch (loops included), FLO the count of leading zeros."""
     from hevce_tpu_torch.ops import probes
 
-    path, _ = v.build()
     return {op: sum(n for fn, n in probes.sass_counts(path, op).items()
                     if "k2_kernel" in fn) for op in SASS_OPCODES}
 
 
-def shape_row(name, per_ctu, ms, state, nops):
+def call_ms(state, ops, nops):
+    """card ms of one advance_rates call: K2 and the wrapper's stack of the
+    7 scalars, as the encoder calls it."""
+    return timing.card_ms(
+        lambda: cabac_scan.advance_rates(state, ops, nops), REPS)
+
+
+def kernel_ms(state, ops, nops):
+    """card ms of K2 alone: its scalars stacked once, outside the timed
+    launches."""
+    st_in = torch.stack([state[f] for f in cs.FIELDS])
+    return timing.card_ms(
+        lambda: cabac_scan.launch(st_in, state["ctxs"], ops, nops), REPS)
+
+
+def shape_row(name, per_ctu, state, ops, nops):
+    """one shape's times on these inputs: ms (the advance_rates call's card
+    time), kernel_ms (K2 alone), ns_per_op (ms over the longest lane's
+    count) and the bound."""
     b_ms, by = k2_bound(state, nops)
     max_nops = int(nops.max())
+    ms = call_ms(state, ops, nops)
     return {"shape": name, "lanes": int(nops.numel()),
             "P": int(state["ctxs"].shape[1]), "per_ctu": per_ctu,
             "sum_nops": int(nops.sum()), "max_nops": max_nops, "ms": ms,
+            "kernel_ms": kernel_ms(state, ops, nops),
             "ns_per_op": 1e6 * ms / max(max_nops, 1), "bound_ms": b_ms,
             "bound_by": by}
 
 
-def per_ctu_ms(rows):
-    return sum(r["per_ctu"] * r["ms"] for r in rows)
+def per_ctu_ms(rows, key="ms"):
+    return sum(r["per_ctu"] * r[key] for r in rows)
 
 
 # --------------------------------------------------------------------- run
 
-def run(dev, out=print, diag=False, steps=False, before=None, seed=0):
+def run(dev, out=print, diag=False, seed=0):
     """the checks and times above; returns the dict of the last line.
-    Raises Mismatch if a kernel differs from its plain version."""
+    Raises Mismatch if K2 differs from its plain version."""
     rng = np.random.default_rng(seed)
-    main = Variant("k2", dev)
-    variants = [main]
-    if steps:
-        variants += [Variant(name, dev, [f"K2_STEPS={mask}"])
-                     for name, mask in STEP_VARIANTS]
-    if before:
-        variants.append(Variant("before", dev, source=pathlib.Path(before),
-                                old_tables=True))
-    res = {"ptxas": build_all(variants),
-           "sass": {v.name: sass_stats(v) for v in variants},
-           "max_abs_err": 0, "checked": 0}
+    path, log = cabac_scan.build(force=True)     # for ptxas's report
+    res = {"ptxas": [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln],
+           "sass": sass_stats(path), "max_abs_err": 0, "checked": 0}
     out(f"K2 on {torch.cuda.get_device_name(dev)}; ptxas: "
         f"{json.dumps(res['ptxas'])}; SASS: {json.dumps(res['sass'])}")
 
-    def check(v, inputs, want, where):
-        got = v(*inputs, want_ctxs=True)
+    def check(inputs, where):
+        want = cabac_scan.scan_plain(*inputs)
+        got = cabac_scan.advance_rates(*inputs, want_ctxs=True)
         torch.cuda.synchronize()
         res["max_abs_err"] = max(res["max_abs_err"],
                                  compare(got, want, where))
         res["checked"] += 1
 
-    blocks, rows = {}, {v.name: [] for v in variants}
+    rows, longest = [], 0
     for name, sz, lanes, cap, P, per_ctu in k2_shapes():
         block = k2_block_inputs(dev, rng, sz)
         if tuple(block[1].shape) != (lanes, cap) or \
@@ -362,55 +302,41 @@ def run(dev, out=print, diag=False, steps=False, before=None, seed=0):
                 f"K2 {name}: path inputs {tuple(block[1].shape)} P="
                 f"{block[0]['ctxs'].shape[1]}, expected ({lanes}, {cap}) "
                 f"P={P}")
-        blocks[name] = block
-        want = cabac_scan.scan_plain(*block)
-        cases = [("random", k2_synthetic_inputs(dev, rng, lanes, cap, P,
-                                                False)),
-                 ("adversarial", k2_synthetic_inputs(dev, rng, lanes, cap,
-                                                     P, True))]
-        for v in variants:
-            check(v, block, want, f"({v.name}) at {name} (blocks)")
-        for case, inputs in cases:
-            want_c = cabac_scan.scan_plain(*inputs)
-            for v in variants:
-                check(v, inputs, want_c, f"({v.name}) at {name} ({case})")
-        for v in variants:
-            r = shape_row(name, per_ctu, v.ms(*block), block[0], block[2])
-            rows[v.name].append(r)
-            out(f"{v.name:6s} {name:6s} lanes={r['lanes']} P={r['P']} "
-                f"max_nops={r['max_nops']}: {r['ms']:.4f} ms, "
-                f"{r['ns_per_op']:.1f} ns/op (bound {r['bound_ms']:.5f} "
-                f"ms, {r['bound_by']}) EXACT")
-        # the same launch with no op to run: its launch, prologue and
+        check(block, f"at {name} (blocks)")
+        for case in ("random", "adversarial"):
+            check(k2_synthetic_inputs(dev, rng, lanes, cap, P,
+                                      case == "adversarial"),
+                  f"at {name} ({case})")
+        r = shape_row(name, per_ctu, *block)
+        # the same call with no op to run: its launch, prologue and
         # epilogue; the rest of its time over max_nops is the marginal
         # time of one op
-        r = rows["k2"][-1]
-        r["empty_ms"] = main.ms(block[0], block[1],
+        r["empty_ms"] = call_ms(block[0], block[1],
                                 torch.zeros_like(block[2]))
         r["marginal_ns_per_op"] = (1e6 * (r["ms"] - r["empty_ms"])
                                    / max(r["max_nops"], 1))
-        out(f"k2     {name:6s} with no op: {r['empty_ms']:.4f} ms; "
-            f"{r['marginal_ns_per_op']:.1f} ns a further op")
-    for v in variants:
-        out(f"{v.name:6s} per lockstep CTU: {per_ctu_ms(rows[v.name]):.4f} "
-            f"ms")
-    res.update(shapes=rows["k2"], ms_per_ctu=per_ctu_ms(rows["k2"]))
-    if steps or before:
-        res["variants"] = {v.name: {"shapes": rows[v.name],
-                                    "ms_per_ctu": per_ctu_ms(rows[v.name])}
-                           for v in variants[1:]}
+        rows.append(r)
+        longest = r["max_nops"]
+        out(f"{name:6s} lanes={r['lanes']} P={r['P']} "
+            f"max_nops={r['max_nops']}: {r['ms']:.4f} ms a call "
+            f"({r['kernel_ms']:.4f} the kernel alone), "
+            f"{r['ns_per_op']:.1f} ns/op, with no op {r['empty_ms']:.4f} ms, "
+            f"{r['marginal_ns_per_op']:.1f} ns a further op (bound "
+            f"{r['bound_ms']:.5f} ms, {r['bound_by']}) EXACT")
+    res.update(shapes=rows, ms_per_ctu=per_ctu_ms(rows),
+               kernel_ms_per_ctu=per_ctu_ms(rows, "kernel_ms"))
+    out(f"per lockstep CTU: {res['ms_per_ctu']:.4f} ms "
+        f"({res['kernel_ms_per_ctu']:.4f} the kernel alone)")
     if diag:
         name, sz, lanes, cap, P, _ = k2_shapes()[-1]
-        count = int(blocks[name][2].max())
         res["diag"] = {}
         for kind in DIAG_KINDS:
-            inputs = k2_diag_inputs(dev, rng, kind, lanes, cap, P, count)
-            check(main, inputs, cabac_scan.scan_plain(*inputs),
-                  f"at {name} ({kind})")
-            ms = main.ms(*inputs)
-            res["diag"][kind] = {"ms": ms, "ns_per_op": 1e6 * ms / count}
-            out(f"diag   {name} {kind:8s} {count} ops a lane: {ms:.4f} ms, "
-                f"{1e6 * ms / count:.1f} ns/op EXACT")
+            inputs = k2_diag_inputs(dev, rng, kind, lanes, cap, P, longest)
+            check(inputs, f"at {name} ({kind})")
+            ms = call_ms(*inputs)
+            res["diag"][kind] = {"ms": ms, "ns_per_op": 1e6 * ms / longest}
+            out(f"diag   {name} {kind:8s} {longest} ops a lane: {ms:.4f} "
+                f"ms, {1e6 * ms / longest:.1f} ns/op EXACT")
     out(json.dumps(res))
     return res
 
@@ -419,16 +345,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--diag", action="store_true",
                     help="also time one-kind strings at the node32 shape")
-    ap.add_argument("--steps", action="store_true",
-                    help="also time the kernel built up to each design step")
-    ap.add_argument("--before", metavar="FILE",
-                    help="also time this K2 source (old table layout)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     dev = _device.resolve(None)
     try:
-        run(dev, diag=args.diag, steps=args.steps, before=args.before,
-            seed=args.seed)
+        run(dev, diag=args.diag, seed=args.seed)
     except Mismatch as e:
         print(f"MISMATCH: {e}", flush=True)
         return 1

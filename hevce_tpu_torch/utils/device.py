@@ -1,6 +1,13 @@
 """Device selection for the port's entry points."""
 import torch
 
+# NVIDIA H100 SXM peaks (data sheet), for the bounds the tools state:
+# 3.35 TB/s of HBM; int32 arithmetic on the CUDA cores, 64 lanes per SM
+# against FP32's 128, so half of the 67 TFLOP/s FP32 rate (a multiply-add
+# counts as 2 ops)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2
+
 
 def resolve(device=None) -> torch.device:
     """None means the card. Without CUDA that raises: only an explicit

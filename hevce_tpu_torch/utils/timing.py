@@ -13,14 +13,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from hevce_tpu_torch.utils.tracing import keep_cupti
 
-# card_ms runs a profiler session that recorded no kernel again, up to this
-# many sessions in all, before it times with busy_events_ms instead
+# card_ms runs a profiler session that recorded no kernel, or lost
+# launches, again, up to this many sessions in all, before it times with
+# busy_events_ms instead
 PROFILE_TRIES = 3
 # spin cycles per second of host enqueue in busy_events_ms: the H100's
 # 1.98 GHz boost clock, rounded up, so the spin outlasts the enqueue
 SPIN_CYCLES_PER_S = 2e9
-# sessions that recorded no kernel, and card_ms calls timed by
-# busy_events_ms, since the process began
+# card_ms's sessions that recorded no kernel or lost launches, and card_ms
+# calls timed by busy_events_ms, since the process began
 EMPTY_SESSIONS = 0
 EVENT_TIMED = 0
 
@@ -92,19 +93,22 @@ def card_kernels(fn):
 
 def card_ms(fn, reps):
     """mean card milliseconds per call of fn: the kernels' own time, summed
-    by torch.profiler over `reps` calls. A session that records no kernel
+    by torch.profiler over `reps` calls. Each call launches the same
+    kernels, so each kernel's count in a whole session is a multiple of
+    `reps`; a session where one is not lost launches (or held one-time
+    work of a first call). Such a session, or one that recorded no kernel,
     is run again; after PROFILE_TRIES of them the time is busy_events_ms's,
     said on stderr and counted in EVENT_TIMED."""
     global EMPTY_SESSIONS, EVENT_TIMED
     for _ in range(PROFILE_TRIES):
-        us = sum(t for _, t, _ in card_kernels(
-            lambda: [fn() for _ in range(reps)]))
-        if us:
-            return us / 1e3 / reps
+        kernels = card_kernels(lambda: [fn() for _ in range(reps)])
+        if kernels and all(n % reps == 0 for _, _, n in kernels):
+            return sum(us for _, us, _ in kernels) / 1e3 / reps
         EMPTY_SESSIONS += 1
     EVENT_TIMED += 1
     print(f"timing.card_ms: {PROFILE_TRIES} profiler sessions recorded no "
-          f"kernel; timed with CUDA events behind a spin kernel",
+          f"kernel or lost launches; timed with CUDA events behind a spin "
+          f"kernel",
           file=sys.stderr, flush=True)
     return busy_events_ms(fn, reps)
 

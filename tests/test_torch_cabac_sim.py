@@ -116,16 +116,6 @@ def test_k2_mps_next_state_arithmetic_equals_the_table():
     np.testing.assert_array_equal(v + 2 * (s < 62), jcb.NEXT_STATE_MPS)
 
 
-def test_k2_tool_before_tables_are_the_old_layout():
-    """bench_k2 --before hands an earlier K2 source the 512-entry layout it
-    reads: the flat LPS range table, the LPS and the MPS next-state
-    tables."""
-    v = bench_k2.Variant("before", torch.device("cpu"), old_tables=True)
-    want = np.concatenate([np.asarray(jcb.LPS_TABLE).reshape(-1),
-                           jcb.NEXT_STATE_LPS, jcb.NEXT_STATE_MPS])
-    np.testing.assert_array_equal(v.tables.numpy(), want)
-
-
 @pytest.mark.parametrize("kind", bench_k2.DIAG_KINDS + ("random",
                                                         "adversarial"))
 def test_k2_tool_strings_are_nop_padded(kind):
