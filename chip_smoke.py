@@ -62,9 +62,31 @@ Phases, each printed as one JSON line:
             at each size, and torch.profiler over one CTU per image (node
             rates on): wall, card busy time, K1's and K2's part.
   profile   torch.profiler over two front steps at the main path's lanes:
-            wall time, the card's busy time and K1's part of it.
+            wall time, the card's busy time and K1's part of it; then the
+            same for two dense (rmd=None) front steps.
   identity  3 small images at qpd6 0, 2 and 4, run on the card and on the
             CPU: the lean record buffers must be byte-identical.
+  dense     the dense fast mode (rmd=None: every node searches all 35 modes
+            in both TU layouts) as a user calls it: encode_batch_fast on the
+            slice phase's 18 synthetic 768x512 images (qpd6=2, one batch,
+            288 lanes). K1 must launch exactly 153 times per front step,
+            every stream must decode to its recon, and the identity phase's
+            images must give byte-identical records on the card and the CPU
+            on this path too. K1 against its plain version (tolerance 0) at
+            the 153 calls of one dense front step at 288 lanes, its inputs
+            taken at the wrapper. Wall s, ms per front step, K1's card ms
+            per front step (from the kernels phase's (sz, 35) rows) and its
+            bound.
+  surface   the rest of the fast mode's surface, on the card: fetch_qc=True
+            (full records: quant levels, int16 escape sideband, device
+            recon) on the slice phase's 18 768x512 images must give the
+            slice phase's streams and recons byte for byte, and a noise
+            image at qpd6=0 must take the escape sideband and still equal
+            the lean stream; HEVCE_ADAPT=post on the 24 images must flag at
+            least one image (and says how many it kept) with every stream
+            decoding to its recon; encode_many_exact on 2 of the images must
+            give native.encode_image_native's streams byte for byte
+            (host_rdo seconds printed). K1 launch counts on each path.
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches, and how many card times came from
@@ -80,6 +102,7 @@ Usage: python3 chip_smoke.py [--seed N]
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -105,6 +128,18 @@ SHAPES = [(4, 35), (4, 4), (8, 4), (8, 12), (16, 4), (16, 12),
 PER_FRONT = {(8, 12): 16, (4, 4): 64, (4, 35): 64, (16, 12): 4, (8, 4): 16,
              (32, 12): 1, (16, 4): 4}
 LAUNCHES_PER_FRONT = sum(PER_FRONT.values())            # 169
+# K1 launches per front step of the dense path (rmd=None), all at 35
+# candidates: 16 leaves x (8x8 2Nx2N, four 4x4 TU-split subs, NxN PUs 1-3:
+# PU0 is the TU-split's sub0), 4 quadrants x (16x16 2Nx2N + four 8x8 subs),
+# the root (32x32 2Nx2N + four 16x16 subs)
+DENSE_PER_FRONT = {(4, 35): 16 * 7, (8, 35): 16 + 4 * 4, (16, 35): 4 + 4,
+                   (32, 35): 1}
+DENSE_LAUNCHES_PER_FRONT = sum(DENSE_PER_FRONT.values())  # 153
+# the surface phase's cuts, to keep the script's wall: HEVCE_ADAPT=post on
+# the 18 768x512 images cut to 512x384 (all rows, so 288 lanes; 42 front
+# steps a pass), encode_many_exact on 2 of them cut to 256x384
+POST_SHAPE = (512, 384)
+EXACT_SHAPE = (256, 384)
 # the lockstep path: a batch of 18 images 64x96 (6 CTUs)
 LOCK_SHAPE = (64, 96)
 # K1 launches per CTU there, all at (sz, 35) and 18 rows: a PU event's
@@ -446,7 +481,7 @@ def phase_slice(torch, dev, rng, card):
           "psnr_db_min": float(np.min(quality)),
           "bpp_mean": float(np.mean(bpp)), "decoded": len(streams),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return launches
+    return launches, imgs, streams, recons
 
 
 # ---------------------------------------------------------------- lockstep
@@ -588,7 +623,8 @@ def phase_lockstep(torch, dev, rng, card):
 
 def phase_profile(torch, dev, rng):
     """torch.profiler over two front steps at the main path's lanes (a
-    768x512 batch of 18): wall time, the card's busy time and K1's part."""
+    768x512 batch of 18): wall time, the card's busy time and K1's part;
+    then the same for two dense (rmd=None) front steps on the same inputs."""
     from hevce_tpu_torch.models import wavefront as wf
     from hevce_tpu_torch.utils import timing
 
@@ -601,38 +637,46 @@ def phase_profile(torch, dev, rng):
     cv = torch.full((B * R,), wf.CTX_BIT, dtype=torch.int32, device=dev)
     sv = torch.full((B * R,), wf.SIG_ZERO, dtype=torch.int32, device=dev)
 
-    def steps():
-        with torch.no_grad():
-            for d in (30, 31):
-                wf.front_core(QPD6, R, (12, 4), W, PME, O, d, C, cv, sv)
+    def profiled(rmd):
+        def steps():
+            with torch.no_grad():
+                for d in (30, 31):
+                    wf.front_core(QPD6, R, rmd, W, PME, O, d, C, cv, sv)
 
-    def timed_steps():
-        t0 = time.perf_counter()
+        def timed_steps():
+            t0 = time.perf_counter()
+            steps()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+
         steps()
         torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
+        wall = []              # timed inside the profiled region, so it
+        ks = timing.card_kernels(timed_steps)  # leaves out the post-processing
+        busy_us = sum(us for _, us, _ in ks)
+        k1_us = sum(us for k, us, _ in ks if "k1_kernel" in k)
+        return ks, {"wall_ms_per_step": 1e3 * wall[0] / 2,
+                    "card_busy_ms_per_step": busy_us / 1e3 / 2,
+                    "card_busy_share": busy_us / 1e6 / wall[0],
+                    "k1_ms_per_step": k1_us / 1e3 / 2,
+                    "kernels_per_step": sum(n for _, _, n in ks) / 2}
 
-    steps()
-    torch.cuda.synchronize()
-    wall = []                  # timed inside the profiled region, so it
-    ks = timing.card_kernels(timed_steps)     # leaves out the post-processing
-    busy_us = sum(us for _, us, _ in ks)
-    k1_us = sum(us for k, us, _ in ks if "k1_kernel" in k)
+    ks, rmd_step = profiled((12, 4))
     top = sorted(ks, key=lambda k: -k[1])[:6]
-    emit({"phase": "profile", "front_steps": 2, "lanes": B * R,
-          "wall_ms_per_step": 1e3 * wall[0] / 2,
-          "card_busy_ms_per_step": busy_us / 1e3 / 2,
-          "card_busy_share": busy_us / 1e6 / wall[0],
-          "k1_ms_per_step": k1_us / 1e3 / 2,
-          "kernels_per_step": sum(n for _, _, n in ks) / 2,
+    emit({"phase": "profile", "front_steps": 2, "lanes": B * R, **rmd_step,
           "top_kernels": [{"name": k[:60], "ms_per_step": us / 1e3 / 2,
                            "launches_per_step": n / 2}
-                          for k, us, n in top]})
+                          for k, us, n in top],
+          "dense": profiled(None)[1]})
 
 
 # ---------------------------------------------------------------- identity
 
-def phase_identity(dev):
+def records_identical(dev, rmd):
+    """3 small images (a 64x96 batch of two, one 50x70) at qpd6 0, 2 and 4
+    through _dispatch_batch on the card and on the CPU at `rmd`: fails
+    unless the lean record buffers are byte-identical; returns how many
+    buffers were compared."""
     from hevce_tpu_torch.models import wavefront as wf
     from hevce_tpu_torch.utils.tracing import PhaseTimer
 
@@ -647,16 +691,255 @@ def phase_identity(dev):
             prices = wf._predict_prices(group, qpd6)
             bufs = []
             for d in (dev, "cpu"):
-                out, meta = wf._dispatch_batch(group, qpd6, prices=prices,
+                out, meta = wf._dispatch_batch(group, qpd6, rmd, prices=prices,
                                                device=d)
                 wf._fetch_lean(out, meta, PhaseTimer())   # checksum tail
                 bufs.append(out.numpy().tobytes())
             if bufs[0] != bufs[1]:
                 fail(f"card and CPU records differ at qpd6={qpd6}, "
-                     f"shape {group[0].shape}")
+                     f"shape {group[0].shape}, rmd={rmd}")
             compared += 1
-    emit({"phase": "identity", "buffers_compared": compared,
+    return compared
+
+
+def phase_identity(dev):
+    from hevce_tpu_torch.models import wavefront as wf
+
+    emit({"phase": "identity",
+          "buffers_compared": records_identical(dev, wf._RMD_ENV),
           "byte_identical": True})
+
+
+# ------------------------------------------------------------------- dense
+
+def k1_dense_calls(torch, dev, imgs):
+    """K1's inputs as one dense front step hands them over: front 30 of the
+    batch's 768x512 grid at 288 lanes, its three-column window and its
+    originals cut from the images themselves. Returns the [(sz, pred, blk)]
+    of every K1 call, taken at its wrapper."""
+    from hevce_tpu_torch.models import wavefront as wf
+    from hevce_tpu_torch.ops import fused_eval
+
+    yp, xp = imgs[0].shape
+    R, C, d = yp // 32, xp // 32, 30
+    O = torch.from_numpy(wf._orig_tiles_raster(imgs, yp, xp)).to(dev)
+    rr = torch.arange(R, device=dev)
+    tiles = lambda back: O[:, rr, (d - back - 2 * rr).clamp(0, C - 1)]
+    W = torch.stack([tiles(3), tiles(2), tiles(1)], 2)
+    PME = torch.full((len(imgs), R, 8), wf.DC, dtype=torch.int32, device=dev)
+    cv = torch.full((len(imgs) * R,), wf.CTX_BIT, dtype=torch.int32,
+                    device=dev)
+    sv = torch.full_like(cv, wf.SIG_ZERO)
+    calls, k1 = [], fused_eval.pipeline_sse
+
+    def taken(sz, q, pred, blk):
+        calls.append((sz, pred.clone(), blk.clone()))
+        return k1(sz, q, pred, blk)
+
+    fused_eval.pipeline_sse = taken
+    try:
+        with torch.no_grad():
+            wf.front_core(QPD6, R, None, W, PME, tiles(0), d, C, cv, sv)
+    finally:
+        fused_eval.pipeline_sse = k1
+    return calls
+
+
+def phase_dense(torch, dev, card, imgs, shapes):
+    """the dense fast mode on the slice phase's 18 768x512 images (one
+    batch at 288 lanes): K1 launches, decode, card-vs-CPU records, K1 at
+    one dense front step's own calls; K1's card ms per step from the
+    kernels phase's rows at (sz, 35)."""
+    from hevce_tpu_torch.models import wavefront as wf
+    from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.runtime import native
+    from hevce_tpu_torch.utils.tracing import PhaseTimer
+
+    land = [im for im in imgs if im.shape == imgs[0].shape]
+    if len(land) != BATCH:
+        fail(f"dense: expected {BATCH} images of {imgs[0].shape}, got "
+             f"{len(land)}")
+    R, C = -(-land[0].shape[0] // 32), -(-land[0].shape[1] // 32)
+    fronts = 2 * (R - 1) + C
+    wf.encode_batch_fast([im[:64, :96] for im in land[:2]], QPD6, rmd=None,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    fused_eval.LAUNCHES = 0
+    t0 = time.perf_counter()
+    streams, recons = wf.encode_batch_fast(land, QPD6, timer=timer, rmd=None,
+                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_eval.LAUNCHES
+    if launches != DENSE_LAUNCHES_PER_FRONT * fronts:
+        fail(f"K1 launched {launches} times on the dense path, expected "
+             f"{DENSE_LAUNCHES_PER_FRONT} x {fronts} fronts")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    quality, bpp = [], []
+    for i, (s, r) in enumerate(zip(streams, recons)):
+        if not np.array_equal(native.decode_stream(s), r):
+            fail(f"dense stream {i} does not decode to its recon")
+        h, w = land[i].shape
+        quality.append(psnr(r[:h, :w], land[i]))
+        bpp.append(8 * len(s) / land[i].size)
+    decode_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    compared = records_identical(dev, None)
+    identity_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    calls = k1_dense_calls(torch, dev, land)
+    got = {}
+    for sz, pred, blk in calls:
+        key = (sz, pred.shape[-3])
+        got[key] = got.get(key, 0) + 1
+        if pred.shape[:-3].numel() != LANES:
+            fail(f"dense K1 call at sz={sz}: pred {tuple(pred.shape)}, "
+                 f"expected {LANES} lanes")
+    if got != DENSE_PER_FRONT:
+        fail(f"one dense front step made the K1 calls {got}, expected "
+             f"{DENSE_PER_FRONT}")
+    max_err = max(k1_compare(torch, sz, QPD6, pred, blk,
+                             "at a dense front step's calls")
+                  for sz, pred, blk in calls)
+    k1_check_s = time.perf_counter() - t0
+    rows = {(r["sz"], r["M"]): r for r in shapes}
+    per_step = lambda key: sum(n * rows[k][key]
+                               for k, n in DENSE_PER_FRONT.items())
+    out = {"launches": launches, "ms_per_front": per_step("ms"),
+           "bound_ms_per_front": per_step("bound_ms"),
+           "tc_bound_ms_per_front": per_step("tc_bound_ms"),
+           "plain_ms_per_front": per_step("plain_ms"), "max_abs_err": max_err}
+    emit({"phase": "dense", "card": card, "images": len(land),
+          "shape": list(land[0].shape), "qpd6": QPD6, "batch": BATCH,
+          "lanes": LANES,
+          "fronts": fronts, "k1_launches": launches,
+          "k1_launches_per_front": launches / fronts, "wall_s": wall,
+          "wall_ms_per_front": 1e3 * wall / fronts,
+          "mp_per_s": sum(im.size for im in land) / wall / 1e6,
+          "phases_s": dict(timer.totals),
+          "k1_card_ms_per_front": out["ms_per_front"],
+          "k1_bound_ms_per_front": out["bound_ms_per_front"],
+          "k1_tc_bound_ms_per_front": out["tc_bound_ms_per_front"],
+          "k1_ms_basis": "the kernels phase's card ms at (sz, 35) and 288 "
+                         "lanes times the calls per dense front step",
+          "k1_checked": len(calls), "k1_max_abs_err": max_err,
+          "records_compared": compared, "decoded": len(streams),
+          "psnr_db_mean": float(np.mean(quality)),
+          "bpp_mean": float(np.mean(bpp)), "peak_mem_gib": peak,
+          "parts_s": {"decode": decode_s, "identity": identity_s,
+                      "k1_check": k1_check_s}})
+    return out
+
+
+# ----------------------------------------------------------------- surface
+
+def phase_surface(torch, dev, rng, card, imgs, streams, recons):
+    """fetch_qc=True, HEVCE_ADAPT=post and encode_many_exact on the card,
+    each against what it must equal."""
+    from hevce_tpu_torch.models import wavefront as wf
+    from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.runtime import native
+    from hevce_tpu_torch.utils.tracing import PhaseTimer
+
+    fronts = lambda im: 2 * (-(-im.shape[0] // 32) - 1) + -(-im.shape[1] // 32)
+    land = [i for i, im in enumerate(imgs) if im.shape == imgs[0].shape]
+    res = {"phase": "surface", "card": card, "qpd6": QPD6, "batch": BATCH}
+
+    # full records: the slice phase's streams and (host-replayed) recons
+    fused_eval.LAUNCHES = 0
+    t0 = time.perf_counter()
+    s_full, r_full = wf.encode_many_fast([imgs[i] for i in land], QPD6,
+                                         batch=BATCH, device=dev,
+                                         fetch_qc=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fused_eval.LAUNCHES
+    if k1 != LAUNCHES_PER_FRONT * fronts(imgs[land[0]]):
+        fail(f"K1 launched {k1} times with fetch_qc=True")
+    for j, i in enumerate(land):
+        if s_full[j] != streams[i]:
+            fail(f"fetch_qc=True stream {i} differs from the lean path's")
+        if not np.array_equal(r_full[j], recons[i]):
+            fail(f"fetch_qc=True device recon {i} differs from the host "
+                 f"replay")
+    noise = rng.integers(0, 256, (64, 96)).astype(np.uint8)
+    out, meta = wf._dispatch_batch([noise], 0, device=dev, fetch_qc=True)
+    if not out[1].numpy()[0, 1]:
+        fail("a noise image at qpd6=0 did not take the int16 escape sideband")
+    s_esc, r_esc = wf._finish_batch(out, meta, True, PhaseTimer(), True)
+    s_lean, r_lean = wf.encode_batch_fast([noise], 0, device=dev)
+    if s_esc != s_lean or not np.array_equal(r_esc[0], r_lean[0]):
+        fail("the escaped image's full-record stream differs from the lean")
+    res["fetch_qc"] = {"images": len(land), "wall_s": wall,
+                       "k1_launches": k1,
+                       "byte_identical": len(land), "escape_taken": True}
+
+    # HEVCE_ADAPT=post: a two-pass encode whose corrections must decode,
+    # on the 18 768x512 images cut to POST_SHAPE (one batch, 288 lanes)
+    post = [imgs[i][:POST_SHAPE[0], :POST_SHAPE[1]] for i in land]
+    saved = os.environ.get("HEVCE_ADAPT")
+    os.environ["HEVCE_ADAPT"] = "post"
+    try:
+        timer = PhaseTimer()
+        fused_eval.LAUNCHES = 0
+        t0 = time.perf_counter()
+        s_post, r_post = wf.encode_many_fast(post, QPD6, batch=BATCH,
+                                             timer=timer, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("HEVCE_ADAPT")
+        else:
+            os.environ["HEVCE_ADAPT"] = saved
+    flagged, kept = timer.counts["adapt_flagged"], timer.counts["adapt_kept"]
+    if not flagged:
+        fail("HEVCE_ADAPT=post flagged no image")
+    k1 = fused_eval.LAUNCHES
+    if k1 != 2 * LAUNCHES_PER_FRONT * fronts(post[0]):
+        fail(f"K1 launched {k1} times under HEVCE_ADAPT=post, expected a "
+             f"primary and a corrective pass of {fronts(post[0])} fronts")
+    for i, (s, r) in enumerate(zip(s_post, r_post)):
+        if not np.array_equal(native.decode_stream(s), r):
+            fail(f"HEVCE_ADAPT=post stream {i} does not decode to its recon")
+    res["post"] = {"images": len(post), "shape": list(post[0].shape),
+                   "flagged": flagged, "kept": kept,
+                   "dispatches": timer.counts["dispatch"], "wall_s": wall,
+                   "k1_launches": k1, "decoded": len(s_post),
+                   "phases_s": dict(timer.totals),
+                   "cut": f"18 of the 24 images (the 6 768x512 ones are a "
+                          f"second batch), each cut to {POST_SHAPE[0]}x"
+                          f"{POST_SHAPE[1]}: 288 lanes kept, "
+                          f"{fronts(post[0])} front steps a pass, not 54"}
+
+    # encode_many_exact: hinted, byte-identical to the native engine
+    two = [imgs[i][:EXACT_SHAPE[0], :EXACT_SHAPE[1]] for i in land[:2]]
+    timer = PhaseTimer()
+    fused_eval.LAUNCHES = 0
+    t0 = time.perf_counter()
+    s_ex, r_ex = wf.encode_many_exact(two, QPD6, timer=timer, batch=BATCH,
+                                      device=dev)
+    wall = time.perf_counter() - t0
+    if fused_eval.LAUNCHES != LAUNCHES_PER_FRONT * fronts(two[0]):
+        fail(f"K1 launched {fused_eval.LAUNCHES} times for the hints")
+    t0 = time.perf_counter()
+    refs = [native.encode_image_native(im, QPD6) for im in two]
+    native_s = time.perf_counter() - t0
+    for i, (s, r) in enumerate(zip(s_ex, r_ex)):
+        if s != refs[i][0] or not np.array_equal(r, refs[i][1]):
+            fail(f"encode_many_exact image {i} differs from the native "
+                 f"engine's encode")
+    res["exact"] = {"images": len(two), "wall_s": wall,
+                    "host_rdo_s": timer.totals["host_rdo"],
+                    "phases_s": dict(timer.totals),
+                    "k1_launches": fused_eval.LAUNCHES,
+                    "native_sequential_s": native_s,
+                    "byte_identical": len(two), "shape": list(EXACT_SHAPE),
+                    "cut": f"2 images cut to {EXACT_SHAPE[0]}x"
+                           f"{EXACT_SHAPE[1]} ({fronts(two[0])} front steps "
+                           f"of hints, not 54)"}
+    emit(res)
 
 
 # ------------------------------------------------------------------ probes
@@ -845,11 +1128,15 @@ def main():
     k2_err, k2_shapes_ = timed("k2", phase_k2, torch, dev, rng)
     for k in probes.LAUNCHES:          # the encode paths never run a probe
         probes.LAUNCHES[k] = 0
-    launches = timed("slice", phase_slice, torch, dev, rng, card)
+    launches, imgs, streams, recons = timed("slice", phase_slice, torch,
+                                            dev, rng, card)
     lock_k1, lock_k2 = timed("lockstep", phase_lockstep, torch, dev, rng,
                              card)
     timed("profile", phase_profile, torch, dev, rng)
     timed("identity", phase_identity, dev)
+    dense = timed("dense", phase_dense, torch, dev, card, imgs, shapes)
+    timed("surface", phase_surface, torch, dev,
+          np.random.default_rng([args.seed, 7]), card, imgs, streams, recons)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
     emit({"phase": "timing", "empty_profiler_sessions": timing.EMPTY_SESSIONS,
@@ -868,7 +1155,8 @@ def main():
         "name": "fused_eval", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/fused_eval.cu",
         "replaces": "hevce_tpu/ops/fused_eval.py:255",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches,
+        "max_abs_err": max(max_err, dense["max_abs_err"]),
         "ms": per_front("ms"), "plain_ms": per_front("plain_ms"),
         "bound_ms": t_bound,
         "bound_by": "operations" if by_ops * 2 > t_bound else "bytes",
@@ -881,13 +1169,20 @@ def main():
         "lockstep_ms_per_ctu": per_ctu("ms", rows=k1_lock),
         "lockstep_bound_ms_per_ctu": per_ctu("bound_ms", rows=k1_lock),
         "lockstep_tc_bound_ms_per_ctu": per_ctu("tc_bound_ms", rows=k1_lock),
+        "dense_launches": dense["launches"],
+        "dense_ms_per_front": dense["ms_per_front"],
+        "dense_bound_ms_per_front": dense["bound_ms_per_front"],
+        "dense_tc_bound_ms_per_front": dense["tc_bound_ms_per_front"],
+        "dense_plain_ms_per_front": dense["plain_ms_per_front"],
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
                  f"call_ms includes the host's enqueue; bound_ms with the "
                  f"transforms as int32 multiply-adds, tc_bound_ms as int8 "
                  f"tensor-core digit products; lockstep_* per CTU "
                  f"of the lockstep path at {BATCH} rows, launches over its "
-                 f"three runs"}, {
+                 f"three runs; dense_* per front step of the dense path "
+                 f"(rmd=None, {DENSE_LAUNCHES_PER_FRONT} launches at (sz, 35)"
+                 f" and {LANES} lanes), launches over its run"}, {
         "name": "cabac_scan", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/cabac_scan.cu",
         "replaces": "hevce_tpu/ops/cabac_pallas.py:190",

@@ -5,10 +5,12 @@ encoder, the decision-record pack (pack_forest_img: it replays the quant
 levels and recon from the decisions and the original image, then runs the
 real CABAC) and an independent decoder. The port compiles it at first use
 with the same g++ flags as tools/build_native.py into build/hevce_tpu_torch/
-(runtime/build), and binds the functions the wavefront fast mode and the
-lockstep engine (parallel/lockstep, through the hevce_batch_* API) need.
+(runtime/build), and binds the functions the wavefront fast mode (both
+packs, the hinted exact batch encode) and the lockstep engine
+(parallel/lockstep, through the hevce_batch_* API) need.
 """
 import ctypes
+import os
 import threading
 
 import numpy as np
@@ -51,6 +53,14 @@ def _load():
         lib.hevce_pack_img.argtypes = [_I32P] * 3 + [
             _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             _U8P, ctypes.c_longlong, _U8P]
+        lib.hevce_pack.restype = ctypes.c_longlong
+        lib.hevce_pack.argtypes = [_I32P] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_longlong]
+        lib.hevce_encode_many_hinted.restype = ctypes.c_int
+        lib.hevce_encode_many_hinted.argtypes = [
+            _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int8), ctypes.c_int, _U8P,
+            ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong), _U8P]
         lib.hevce_last_pack_stats.restype = None
         lib.hevce_last_pack_stats.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.hevce_decode.restype = ctypes.c_longlong
@@ -125,6 +135,61 @@ def pack_forest_img(lay, pm, pm4, img: np.ndarray, qpd6: int):
     if n <= 0:
         raise ValueError(f"hevce_pack_img failed: {n}")
     return bytes(buf[:n]), rcon
+
+
+def pack_forest(lay, pm, pm4, qc, ysz: int, xsz: int, qpd6: int) -> bytes:
+    """Pack a pre-decided CU forest with its quant levels (the fast mode's
+    full records): per CTU in raster order lay / pm 21 nodes, pm4 64 NxN PU
+    modes and qc 1024 composed z-order quant leaves (csrc PackRec). Arrays
+    of any integer dtype; they are flattened to int32."""
+    lib = _load()
+    cap = int(lib.hevce_stream_capacity(ysz, xsz))
+    buf = np.empty(cap, np.uint8)
+    arrs = [np.ascontiguousarray(a, np.int32).reshape(-1)
+            for a in (lay, pm, pm4, qc)]
+    n = lib.hevce_pack(*(a.ctypes.data_as(_I32P) for a in arrs),
+                       ysz, xsz, qpd6, _u8(buf), cap)
+    if n <= 0:
+        raise ValueError(f"hevce_pack failed: {n}")
+    return bytes(buf[:n])
+
+
+def encode_many_native(imgs, qpd6: int, nthreads: int = 0, hints=None):
+    """Bit-exact encode of same-shaped images by nthreads C++ workers
+    (0 = os.cpu_count()). hints: optional (n, CTUs, 106) int8 lean fast-mode
+    records ([lay 21 | pm 21 | pm4 64] per CTU, raster order); they only
+    reorder each node's trials, so the streams are the same with or without
+    them. Returns (stream bytes, recons with CTU-padded dims) per image."""
+    imgs = [_clip_dims(im) for im in imgs]
+    shape = imgs[0].shape
+    if any(im.shape != shape for im in imgs):
+        raise ValueError("encode_many_native needs same-shaped images")
+    if not 0 <= qpd6 <= 4:
+        raise ValueError(f"qpd6={qpd6} outside 0..4")
+    lib = _load()
+    n = len(imgs)
+    ysz, xsz = shape
+    yp, xp = -(-ysz // 32) * 32, -(-xsz // 32) * 32
+    cap = stream_capacity(ysz, xsz)
+    blob = np.concatenate([im.reshape(-1) for im in imgs])
+    streams = np.empty(n * cap, np.uint8)
+    lens = np.empty(n, np.int64)
+    rcons = np.empty((n, yp, xp), np.uint8)
+    hptr = ctypes.POINTER(ctypes.c_int8)()
+    if hints is not None:
+        hints = np.ascontiguousarray(hints, np.int8)
+        if hints.size != n * (yp // 32) * (xp // 32) * 106:
+            raise ValueError(f"hints {hints.shape} do not fit {n} images "
+                             f"of {shape}")
+        hptr = hints.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+    rc = lib.hevce_encode_many_hinted(
+        _u8(blob), n, ysz, xsz, qpd6, hptr, nthreads or os.cpu_count() or 1,
+        _u8(streams), cap, lens.ctypes.data_as(ctypes.POINTER(
+            ctypes.c_longlong)), _u8(rcons))
+    if rc != 0:
+        raise ValueError(f"hevce_encode_many_hinted failed: {rc}")
+    return ([bytes(streams[i * cap:i * cap + lens[i]]) for i in range(n)],
+            [rcons[i] for i in range(n)])
 
 
 def last_pack_stats():

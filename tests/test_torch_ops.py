@@ -343,7 +343,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     calls = [lambda: twf.encode_many_fast([img], 2),
              lambda: twf.encode_batch_fast([img], 2),
              lambda: twf.encode_image_fast(img, 2),
-             lambda: twf._dispatch_batch([img], 2)]
+             lambda: twf._dispatch_batch([img], 2),
+             lambda: twf.encode_many_exact([img], 2),
+             lambda: twf.encode_batch_fast([img], 2, fetch_qc=True),
+             lambda: twf.encode_many_fast([img], 2, fetch_qc=True),
+             lambda: twf.encode_batch_fast([img], 2, rmd=None)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -352,10 +356,25 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 def test_adapt_post_is_not_run_as_pre(monkeypatch):
+    """post runs the two-pass path: the first dispatch at the constant
+    prices (no prediction), then a corrective one at _adapt_rule's lower
+    context price for the image over the bits-per-pixel trigger."""
     monkeypatch.setenv("HEVCE_ADAPT", "post")
-    with pytest.raises(NotImplementedError):
-        twf.encode_many_fast([np.zeros((32, 32), np.uint8)], 2, device="cpu")
-    for v, mode in (("pre", "pre"), ("", "pre"), ("0", "0"), ("off", "0")):
+    img = np.random.default_rng(7).integers(0, 256, (32, 32)).astype(np.uint8)
+    assert twf._predict_prices([img], 2) is not None   # pre would price it
+    seen, dispatch = [], twf._dispatch_batch
+
+    def spy(images, qpd6, rmd=twf._RMD_ENV, prices=None, **kw):
+        seen.append(prices)
+        return dispatch(images, qpd6, rmd, prices, **kw)
+
+    monkeypatch.setattr(twf, "_dispatch_batch", spy)
+    s, r = twf.encode_many_fast([img], 2, device="cpu")
+    assert len(seen) == 2 and seen[0] is None
+    assert seen[1][0][0] < twf.CTX_BIT and seen[1][1][0] == twf.SIG_ZERO
+    np.testing.assert_array_equal(native.decode_stream(s[0]), r[0])
+    for v, mode in (("pre", "pre"), ("", "pre"), ("0", "0"), ("off", "0"),
+                    ("post", "post")):
         monkeypatch.setenv("HEVCE_ADAPT", v)
         assert twf.adapt_mode() == mode
 
