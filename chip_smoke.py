@@ -15,11 +15,14 @@ Phases, each printed as one JSON line:
             CUDA graph, P2 and P3 EXACT, P3's us per eval beside K1's);
             every probe kernel must launch there, and none on the encode
             paths below. Then P1-P3 against their plain versions on the
-            card (tolerance 0; P2 also at extreme and ragged operands, K
-            not a multiple of 16 among them; P3 at qpd6 0-4 and against K1
-            at (4, 35)), and each probe's card, call, plain and library
-            (x.add_(1), torch._int_mm) times beside its bound; P2 also at
-            (4096, 4096, 4096) beside torch._int_mm (from the tool).
+            card (tolerance 0; P1 also at one element; P2 also at extreme
+            and ragged operands, K not a multiple of 16 among them; P3 at
+            512, 480 and the ragged 1, 17 and 511 rows x qpd6 0-4, and
+            against K1 at (4, 35)), and each probe's card, call, plain and
+            library (x.add_(1), torch._int_mm) times beside its bound; P1
+            also at one element (the card's least kernel), P3 also at 480
+            rows; P2 also at (4096, 4096, 4096) beside torch._int_mm (from
+            the tool).
   kernels   K1 against its plain PyTorch version on the card for the 11
             production (sz, M) shapes x qpd6 0-4 at 288 lanes (the main
             path's lane count for a 768x512 batch of 18): q, recon and sse
@@ -63,7 +66,12 @@ Phases, each printed as one JSON line:
             rates on): wall, card busy time, K1's and K2's part.
   profile   torch.profiler over two front steps at the main path's lanes:
             wall time, the card's busy time and K1's part of it; then the
-            same for two dense (rmd=None) front steps.
+            same for two dense (rmd=None) front steps. Each window's K1
+            count is held to the wrapper counter's delta (169 / 153 a step;
+            utils/timing.card_kernels): a window that lost launches is run
+            again, and one that lost them every time is reported with
+            "complete": false, never used as whole; lost_sessions says how
+            many ran again (so does the lockstep phase's one-CTU profile).
   identity  3 small images at qpd6 0, 2 and 4, run on the card and on the
             CPU: the lean record buffers must be byte-identical.
   dense     the dense fast mode (rmd=None: every node searches all 35 modes
@@ -89,9 +97,10 @@ Phases, each printed as one JSON line:
             (host_rdo seconds printed). K1 launch counts on each path.
 
 Then the seconds each phase took, how many profiler sessions recorded no
-kernel or lost launches, and how many card times came from
+kernel or lost launches (run again), and how many card times came from
 CUDA events instead (both 0 when the profiler worked throughout,
-utils/timing.card_ms), the card's name and power limit (nvidia-smi), the
+utils/timing.card_kernels and card_ms), the card's name and power limit
+(nvidia-smi), the
 kernels line and, as the last line, {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -603,11 +612,14 @@ def phase_lockstep(torch, dev, rng, card):
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
 
-    ks = timing.card_kernels(one_ctu)
+    lost0 = timing.LOST_SESSIONS
+    ks, complete = timing.card_kernels(one_ctu)
     busy_us = sum(us for _, us, _ in ks)
-    prof = {"ctus": 1, "node_rates": True, "wall_s": wall[0],
+    prof = {"ctus": 1, "node_rates": True, "wall_s": wall[-1],
+            "complete": complete,
+            "lost_sessions": timing.LOST_SESSIONS - lost0,
             "card_busy_ms": busy_us / 1e3,
-            "card_busy_share": busy_us / 1e6 / wall[0],
+            "card_busy_share": busy_us / 1e6 / wall[-1],
             "k1_ms": sum(us for k, us, _ in ks if "k1_kernel" in k) / 1e3,
             "k2_ms": sum(us for k, us, _ in ks if "k2_kernel" in k) / 1e3,
             "kernels": sum(n for _, _, n in ks)}
@@ -652,14 +664,19 @@ def phase_profile(torch, dev, rng):
         steps()
         torch.cuda.synchronize()
         wall = []              # timed inside the profiled region, so it
-        ks = timing.card_kernels(timed_steps)  # leaves out the post-processing
+        lost0 = timing.LOST_SESSIONS      # leaves out the post-processing
+        ks, complete = timing.card_kernels(timed_steps)
         busy_us = sum(us for _, us, _ in ks)
         k1_us = sum(us for k, us, _ in ks if "k1_kernel" in k)
-        return ks, {"wall_ms_per_step": 1e3 * wall[0] / 2,
+        return ks, {"wall_ms_per_step": 1e3 * wall[-1] / 2,
                     "card_busy_ms_per_step": busy_us / 1e3 / 2,
-                    "card_busy_share": busy_us / 1e6 / wall[0],
+                    "card_busy_share": busy_us / 1e6 / wall[-1],
                     "k1_ms_per_step": k1_us / 1e3 / 2,
-                    "kernels_per_step": sum(n for _, _, n in ks) / 2}
+                    "k1_launches_per_step": sum(
+                        n for k, _, n in ks if "k1_kernel" in k) / 2,
+                    "kernels_per_step": sum(n for _, _, n in ks) / 2,
+                    "complete": complete,
+                    "lost_sessions": timing.LOST_SESSIONS - lost0}
 
     ks, rmd_step = profiled((12, 4))
     top = sorted(ks, key=lambda k: -k[1])[:6]
@@ -1024,13 +1041,20 @@ def phase_probes(torch, dev, rng):
         a, b = to(a), to(b)
         held("int8_mm", f"from its plain version ({case})",
              [probes.int8_mm(a, b)], [probes.int8_mm_plain(a, b)])
-    for qpd6 in range(5):
-        pred, blk = (to(a) for a in cuda_probe.p3_inputs(rng))
-        got = probes.fused4(pred, blk, qpd6)
-        held("fused4", f"from its plain version at qpd6={qpd6}", got,
-             probes.fused4_plain(pred, blk, qpd6))
-        held("fused4", f"from K1 (4, 35) at qpd6={qpd6}", got,
-             cuda_probe.via_k1(pred, blk, qpd6))
+    one = to(rng.integers(-2**30, 2**30, 1).astype(np.int32))
+    want = probes.add_one_plain(one)
+    held("add_one", "at one element", [probes.add_one(one)], [want])
+    # P3 at the probe's 512 rows, at 480 (its tiles a whole number of
+    # waves of the PR 3/4 kernel), and at ragged tile counts: 1 row (35
+    # blocks, 3 tiles), 17 (595, the last tile 3 rows), 511
+    for rows in cuda_probe.P3_ROWS_CHECKED:
+        for qpd6 in range(5):
+            pred, blk = (to(a) for a in cuda_probe.p3_inputs(rng, rows))
+            got = probes.fused4(pred, blk, qpd6)
+            held("fused4", f"from its plain version at {rows} rows, "
+                 f"qpd6={qpd6}", got, probes.fused4_plain(pred, blk, qpd6))
+            held("fused4", f"from K1 (4, 35) at {rows} rows, qpd6={qpd6}",
+                 got, cuda_probe.via_k1(pred, blk, qpd6))
 
     x = torch.zeros(cuda_probe.P1_SHAPE, dtype=torch.int32, device=dev)
     a, b = (to(v) for v in cuda_probe.p2_inputs(rng)[0][1:])
@@ -1062,6 +1086,13 @@ def phase_probes(torch, dev, rng):
     p4, b4 = pred.view(-1, 35, 4, 4), blk.view(-1, 4, 4)    # K1, same inputs
     rows["fused4"]["k1_ms"] = timing.card_ms(
         lambda: fused_eval.pipeline_sse(4, QPD6, p4, b4), 50)
+    p480, b480 = pred[:480].contiguous(), blk[:480].contiguous()
+    rows["fused4"]["ms_480_rows"] = timing.card_ms(
+        lambda: probes.fused4(p480, b480, QPD6), 50)
+    # the card's least kernel: P1 at one element, one block of one thread
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    rows["add_one"]["ms_one_element"] = timing.card_ms(
+        lambda: probes.add_one(one), 50)
     # P2 at the busy shape, timed by the tool: tensor cores or bytes
     big = res["p2"]["large"]
     Ml, Kl, Nl = big["shape"]
@@ -1139,7 +1170,7 @@ def main():
           np.random.default_rng([args.seed, 7]), card, imgs, streams, recons)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
-    emit({"phase": "timing", "empty_profiler_sessions": timing.EMPTY_SESSIONS,
+    emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS,
           "card_ms_event_timed": timing.EVENT_TIMED})
 
     print(card, flush=True)

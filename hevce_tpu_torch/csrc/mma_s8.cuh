@@ -1,6 +1,7 @@
 // Exact int8 tensor-core products on Hopper (sm_90a) with mma.sync, shared by
 // K1 (fused_eval.cu) and the probes P2 and P3 (probes.cu): one fragment
-// layout, one digit split.
+// layout, one digit split (P3 splits its 16-bit operands in base 256
+// instead, a u8 low digit and an s8 top digit: see probes.cu).
 //
 // D = A * B + D on one warp: A 16x16 s8 (row), B 16x8 s8 (col), D 16x8 s32.
 // Fragments (PTX ISA, mma.m16n8k16 with .s8 operands), g = lane >> 2,
@@ -34,6 +35,16 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[2],
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
+// the same with A unsigned (u8 x s8 -> s32): A's bytes are 0..255
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint32_t (&a)[2],
+                                         uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -43,15 +54,4 @@ template <bool TOP>
 __device__ __forceinline__ int8_t digit(int v, int k) {
   const int d = v >> (7 * k);
   return static_cast<int8_t>(TOP ? d : d & 127);
-}
-
-// digit k of v[0..3] packed as four s8, the lowest k lowest
-template <bool TOP>
-__device__ __forceinline__ uint32_t digits(const int4 v, int k) {
-  const int d[4] = {v.x, v.y, v.z, v.w};
-  uint32_t r = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    r |= (uint32_t)(uint8_t)digit<TOP>(d[i], k) << (8 * i);
-  return r;
 }

@@ -9,7 +9,11 @@
 // P1 add_one (replaces probe_launch_overhead, tools/pallas_probe.py:38).
 //   x += 1 in place on an (8, 128) int32 buffer. 8 KB in and out, 2.4 ns at
 //   3.35 TB/s: what bounds it is the launch itself, which is what it
-//   measures. One thread per element, 256 threads a block.
+//   measures. So it is one block: a thread per 16-byte word (the probe's
+//   4 KB are 256 of them), then a thread per element of the tail that is
+//   not a multiple of 4 (or of the whole buffer where x is not 16-byte
+//   aligned); at one element, one block of one thread, the card's least
+//   kernel.
 //
 // P2 int8_mm (replaces probe_int8_matmul, tools/pallas_probe.py:76).
 //   out = a @ b, a (M, K) int8, b (K, N) int8 -> (M, N) int32, exact (no
@@ -42,24 +46,39 @@
 //   At 512 rows x 35 modes it moves 1.51 MB (0.45 us) and does ~84 int32
 //   operations per coefficient outside the transforms (0.72 us on the
 //   CUDA cores' int32 lanes): bound by the epilogue's integer operations.
-//   Design: a thread block takes a tile of 16 candidate blocks, one thread
-//   per coefficient (256 threads). Each transform stage is one product of
-//   the (16 blocks x 16 coefficients) tile with a 16x16 Kronecker matrix
-//   (ops/probes.py::kron_stage / kron_inv; out = X @ K^T, so K row-major is
-//   the "col" operand as it stands). Its wide operand is split into
-//   base-128 digits (low digits in [0, 127], the top digit signed; 2 digits
-//   for the 10-bit residual, 3 for the 18-bit and 16-bit operands, as
-//   hevce_tpu/ops/xform.py::exact_matmul), each digit an int8 mma.sync tile
-//   (16 rows x 16 coefficients x 8 outputs; warps 0 and 1 take one half of
-//   the outputs each), recombined by Horner's rule in the int32
-//   accumulator: acc = acc * 128 + digit @ K^T. Every partial is the
-//   product of a right-shifted operand, so it stays within the stage's
-//   bound (< 2^30). The TPU kernel's block-diagonal kron(eye(35), .)
-//   operators and segment matrices existed only because Mosaic could not
-//   reshape; here a mode's block is a row of the tile. RDOQ, the kill,
-//   dequant, recon and SSE run on the CUDA cores in int32 as K1 does
-//   (csrc/fused_eval.cu); the CG of a 4x4 block is the block, so its kill
-//   sum and the SSE are 16-lane shuffle reductions. Negative levels are
+//   Design: one warp owns a tile of 16 candidate blocks from load to store,
+//   with no shared memory and no barrier. A block is a row of the tile; each
+//   transform stage is the product of the (16 blocks x 16 coefficients) tile
+//   with a 16x16 Kronecker matrix (ops/probes.py::kron_stage / kron_inv;
+//   out = X @ K^T, K row-major being the "col" operand as it stands), as
+//   mma.sync m16n8k16 products for output columns 0-7 and 8-15. The first
+//   forward stage takes the loaded bytes as they are: M @ (blk - pred) =
+//   blk @ K^T + pred @ (-K)^T, two u8 x s8 products a half. The other
+//   stages' operands are below 2^15 at 4x4 (|tmp| <= 255 * 242 / 2, the
+//   dequantised levels and the inverse's middle clip16), so each splits in
+//   two base-256 digits, an s8 top byte and a u8 low byte taken out by byte
+//   permutes, recombined by Horner's rule in the int32 accumulator: acc =
+//   (hi @ K^T) * 256 + lo @ K^T; every sum stays below 2^23. After the two
+//   products thread (g, t) holds output columns {2t, 2t+1, 8+2t, 9+2t} of
+//   rows g and g+8: the shape of its next A fragment (depth 4t .. 4t+3 of
+//   the same rows). The rows of every stage matrix are permuted on the host
+//   (ops/probes.py::P3_ORDER) so that those columns are coefficients
+//   4t .. 4t+3 in raster order: each stage reads the previous stage's
+//   accumulator as it stands, and each thread owns the same 8 coefficients,
+//   4 consecutive ones of each of its 2 blocks, from the residual to the
+//   SSE. So pred and blk come in as 4-byte words, q goes out as 16-byte
+//   words, and RDOQ, the kill, dequant, recon and SSE run on those 8
+//   registers, step by step over the 8 so that their chains interleave; the
+//   kill sum and the SSE of a block are a sum of 4 and two xor shuffles
+//   across the quad. RDOQ takes the form that holds at 4x4 (rdoq: no cost
+//   saturates, level0 - 2 never wins, and level0 - 1 wins iff the rounding
+//   error is below a threshold set by the rate step at level0), so it is a
+//   compare with one of 8 thresholds the host makes for the qpd6, read by a
+//   shuffle; a CPU test checks it against the full three-candidate search
+//   for every |coef| and qpd6. There is no division: a block's blk row
+//   comes from a multiply-high by a host-made magic number. 1,120 warp
+//   tiles at 512 x 35 fit the card in one wave. Rows past the end of a
+//   ragged last tile are masked at load and store. Negative levels are
 //   scaled by multiplication, never by a left shift.
 
 #include <cstdint>
@@ -73,9 +92,21 @@ constexpr int kI32Max = 0x7FFFFFFF;
 
 // ------------------------------------------------------------------ P1
 
-__global__ void p1_add_one(int* __restrict__ x, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) x[i] += 1;
+// x[0 .. n) += 1: thread i adds to 16-byte word i (i < n4), or to element
+// 4 n4 + i - n4 of the tail past the words
+__global__ void __launch_bounds__(256)
+p1_add_one(int* __restrict__ x, int n4, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n4) {
+    int4 w = reinterpret_cast<int4*>(x)[i];
+    w.x += 1;
+    w.y += 1;
+    w.z += 1;
+    w.w += 1;
+    reinterpret_cast<int4*>(x)[i] = w;
+  } else if (3 * n4 + i < n) {
+    x[3 * n4 + i] += 1;
+  }
 }
 
 // ------------------------------------------------------------------ P2
@@ -251,8 +282,10 @@ p2_int8_mm(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 // ------------------------------------------------------------------ P3
 
 struct P3Params {
-  int a_sft, dist_sft, sft, add, max_dlevel, thr, q_sft, wd, wb;
-  int lvl[6];
+  int a_sft, sft, add, max_dlevel, thr, q_sft;
+  int modes;
+  unsigned div_mul, div_shr;           // n / modes = umulhi(n, mul) >> shr
+  int th[8];                           // RDOQ's thresholds (rdoq below)
 };
 
 __device__ __forceinline__ int rnd(int x, int s) {
@@ -263,149 +296,213 @@ __device__ __forceinline__ int clip16(int x) {
   return min(max(x, -32768), 32767);
 }
 
-// estimateCoeffRate (reference src/HEVCe.c:526-535); lv >= 0
-__device__ __forceinline__ int rate_of(int lv, const P3Params& p) {
-  if (lv >= 6) return 92000 + ((4 + 2 * (31 - __clz(lv - 5))) << 15);
-  int r = p.lvl[5];
-  r = lv == 4 ? p.lvl[4] : r;
-  r = lv == 3 ? p.lvl[3] : r;
-  r = lv == 2 ? p.lvl[2] : r;
-  r = lv == 1 ? p.lvl[1] : r;
-  return lv == 0 ? p.lvl[0] : r;
-}
-
-// saturating RD cost of level lv (0 <= lv <= I32_MAX >> sft)
-__device__ __forceinline__ int cost_of(int dlevel, int lv, const P3Params& p) {
-  const int d1 = abs(dlevel - (lv << p.sft)) >> p.dist_sft;
-  const int dist = (d1 < 46340 ? d1 * d1 : kI32Max) >> 7;
-  const int r = rate_of(lv, p);
-  const int c1 = (kI32Max / p.wd <= dist) ? kI32Max : p.wd * dist;
-  const int c2 = (kI32Max / p.wb <= r) ? kI32Max : p.wb * r;
-  return (kI32Max - c1 <= c2) ? kI32Max : c1 + c2;
-}
-
-// One transform stage on warps 0 and 1: O[:, 8h .. 8h+7] = X @ K^T for the
-// tile's 16 rows, X split in NDIG digits and recombined by Horner's rule.
-// bf is this thread's fragment of K (rows 8h + g, k = 4t .. 4t+3).
-template <int NDIG>
-__device__ __forceinline__ void stage(int (*X)[16], int (*O)[16],
-                                      uint32_t bf, int h, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int4 lo = *reinterpret_cast<const int4*>(&X[g][4 * t]);
-  const int4 hi = *reinterpret_cast<const int4*>(&X[g + 8][4 * t]);
-  int acc[4] = {0, 0, 0, 0};
-  {
-    const uint32_t af[2] = {digits<true>(lo, NDIG - 1),
-                            digits<true>(hi, NDIG - 1)};
-    mma_s8(acc, af, bf);
+// RDOQ of N coefficients (reference src/HEVCe.c:526-592): the signed level
+// of least RD cost among level0, level0 - 1 and level0 - 2 (strict <, so
+// ties keep the higher level), and each dlevel for the CG kill. At 4x4 the
+// costs never saturate and level0 - 2 never wins, so the choice is level0 -
+// 1 iff wd * (dist(level0 - 1) - dist(level0)) < wb * (rate(level0) -
+// rate(level0 - 1)). The distortions depend only on e0 = dlevel - (level0
+// << sft), and their weighted difference rises with e0 wherever it can
+// decide, so the choice is e0 < th[k] for k the class of level0's rate step:
+// k = level0 for 0 .. 6, 7 above where level0 - 5 is a power of two, else 0
+// (no step: th[0] lies below every e0). ops/probes.py::p3_rdoq_thresholds
+// makes th for the qpd6 and checks that form against the full search over
+// every reachable e0; tests/test_torch_probes.py holds this kernel's form to
+// the full search for every |coef|. `th` is this lane's th[lane & 7], read
+// by a shuffle. Step by step over the N values, so their chains interleave.
+template <int N>
+__device__ __forceinline__ void rdoq(int (&x)[N], int (&dlevel)[N],
+                                     const P3Params& p, int th) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    dlevel[i] = min(min(abs(x[i]), 0x1FFFF) << 14, p.max_dlevel);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int l = (dlevel[i] + p.add) >> p.sft;
+    const int e0 = dlevel[i] - (l << p.sft);
+    const int k = l <= 6 ? l : (((l - 5) & (l - 6)) == 0 ? 7 : 0);
+    const int lv = l - (e0 < __shfl_sync(0xffffffffu, th, k));
+    x[i] = x[i] < 0 ? -lv : lv;
   }
+}
+
+// the 4 values' byte 0 (lo) and byte 1 (hi) packed as A fragment words:
+// for |v| < 2^15, v = hi * 256 + lo with hi signed (s8) and lo unsigned (u8)
+__device__ __forceinline__ void split256(const int* v, uint32_t& lo,
+                                         uint32_t& hi) {
+  const uint32_t p01 = __byte_perm(v[0], v[1], 0x5140);  // v0.0 v1.0 v0.1 v1.1
+  const uint32_t p23 = __byte_perm(v[2], v[3], 0x5140);
+  lo = __byte_perm(p01, p23, 0x5410);
+  hi = __byte_perm(p01, p23, 0x7632);
+}
+
+// the accumulators of a stage's two products (output columns 0-7 in c0,
+// 8-15 in c1) as this thread's coefficients 4t .. 4t+3 of row g (x[0..3])
+// and, with H = 2, of row g+8 (x[4..7])
+template <int H>
+__device__ __forceinline__ void gather(const int (&c0)[4], const int (&c1)[4],
+                                       int (&x)[4 * H]) {
 #pragma unroll
-  for (int k = NDIG - 2; k >= 0; --k) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= 128;
-    const uint32_t af[2] = {digits<false>(lo, k), digits<false>(hi, k)};
-    mma_s8(acc, af, bf);
+  for (int h = 0; h < H; ++h) {
+    x[4 * h] = c0[2 * h];
+    x[4 * h + 1] = c0[2 * h + 1];
+    x[4 * h + 2] = c1[2 * h];
+    x[4 * h + 3] = c1[2 * h + 1];
   }
-  const int c = 8 * h + 2 * t;
-  O[g][c] = acc[0];
-  O[g][c + 1] = acc[1];
-  O[g + 8][c] = acc[2];
-  O[g + 8][c + 1] = acc[3];
 }
 
-// sum over the 16 lanes of one half-warp (one candidate block)
-__device__ __forceinline__ int sum16(int v) {
+// One transform stage on the warp: x (this thread's coefficients 4t .. 4t+3
+// of the tile's rows g and, with H = 2, g+8; |x| < 2^15) becomes x @ K^T,
+// as hi @ K^T * 256 + lo @ K^T. bf: this thread's fragments of the permuted
+// K, rows g (output columns 0-7) and 8+g (8-15), k = 4t .. 4t+3. With
+// H = 1 the tile's rows 8-15 are zero.
+template <int H>
+__device__ __forceinline__ void stage(int (&x)[4 * H],
+                                      const uint32_t (&bf)[2]) {
+  uint32_t lo[2] = {0u, 0u}, hi[2] = {0u, 0u};
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int h = 0; h < H; ++h) split256(x + 4 * h, lo[h], hi[h]);
+  int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
+  mma_s8(c0, hi, bf[0]);
+  mma_s8(c1, hi, bf[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c0[i] *= 256;
+    c1[i] *= 256;
+  }
+  mma_u8s8(c0, lo, bf[0]);
+  mma_u8s8(c1, lo, bf[1]);
+  gather<H>(c0, c1, x);
 }
 
-__global__ void __launch_bounds__(256)
+// sum over the quad of lanes that hold one candidate block
+__device__ __forceinline__ int sum4(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ int ubyte(uint32_t w, int j) {
+  return __byte_perm(w, 0u, 0x4440 + j);
+}
+
+// a warp per tile of 8 * H candidate blocks (H = 2: the tile's 16 rows;
+// H = 1: 8, the mma's rows 8-15 left zero)
+template <int H>
+__global__ void __launch_bounds__(128)
 p3_fused4(const uint8_t* __restrict__ pred, const uint8_t* __restrict__ blk,
-          const int8_t* __restrict__ kron, long long n_blocks, int modes,
-          P3Params p, int* __restrict__ q_out, int* __restrict__ sse_out) {
-  __shared__ __align__(16) int X[16][16];
-  __shared__ __align__(16) int O[16][16];
-  const int tid = threadIdx.x, r = tid >> 4, e = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
-  const bool mma_warp = warp < 2;
-  const long long b = (long long)blockIdx.x * 16 + r;
-  const bool live = b < n_blocks;
-
-  // this thread's fragments of the four stage matrices (fwd 1, fwd 2,
-  // inv 1, inv 2), 16x16 int8 each, row-major
-  uint32_t bf[4] = {0, 0, 0, 0};
-  if (mma_warp) {
-    const int row = warp * 8 + (lane >> 2), col = 4 * (lane & 3);
+          const int8_t* __restrict__ kron, int n_blocks, P3Params p,
+          int* __restrict__ q_out, int* __restrict__ sse_out) {
+  constexpr int N = 4 * H;             // coefficients a thread owns
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 8 * H;
+  if (b0 >= n_blocks) return;          // a whole warp past the last tile
+  int b[H];
+  bool live[H];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) bf[s] = ld_u32(kron + s * 256 + row * 16 + col);
+  for (int h = 0; h < H; ++h) {
+    b[h] = b0 + g + 8 * h;
+    live[h] = b[h] < n_blocks;
   }
-  int pv = 0, bv = 0;
-  if (live) {
-    pv = pred[b * 16 + e];
-    bv = blk[(b / modes) * 16 + e];
+
+  // pred and blk of coefficients 4t .. 4t+3 of the rows, a word each: as
+  // they stand, the A fragments (u8) of the first forward stage
+  uint32_t pw[2] = {0u, 0u}, bw[2] = {0u, 0u};
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    if (!live[h]) continue;
+    const unsigned row = p.modes == 1
+        ? (unsigned)b[h] : __umulhi((unsigned)b[h], p.div_mul) >> p.div_shr;
+    pw[h] = *reinterpret_cast<const uint32_t*>(pred + (size_t)b[h] * 16 +
+                                               4 * t);
+    bw[h] = *reinterpret_cast<const uint32_t*>(blk + (size_t)row * 16 +
+                                               4 * t);
   }
-  X[r][e] = bv - pv;
-  __syncthreads();
+  // this thread's fragments of the five permuted stage matrices (fwd 1,
+  // -fwd 1, fwd 2, inv 1, inv 2), 16x16 int8 each, row-major
+  uint32_t bf[5][2];
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bf[s][h] = ld_u32(kron + s * 256 + (8 * h + g) * 16 + 4 * t);
 
-  // forward stage 1: tmp = round(M @ X >> a); |resid| <= 255: 2 digits
-  if (mma_warp) stage<2>(X, O, bf[0], warp, lane);
-  __syncthreads();
-  X[r][e] = rnd(O[r][e], p.a_sft);
-  __syncthreads();
-  // forward stage 2: coef = round(tmp @ M^T >> a+7); |tmp| < 2^17: 3 digits
-  if (mma_warp) stage<3>(X, O, bf[1], warp, lane);
-  __syncthreads();
-  const int coef = rnd(O[r][e], p.a_sft + 7);
+  // forward stage 1: tmp = round(M @ (blk - pred) >> a) = blk @ K^T +
+  // pred @ (-K)^T, both u8; |tmp| <= 255 * 242 / 2 < 2^15
+  int x[N];
+  {
+    int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
+    mma_u8s8(c0, bw, bf[0][0]);
+    mma_u8s8(c1, bw, bf[0][1]);
+    mma_u8s8(c0, pw, bf[1][0]);
+    mma_u8s8(c1, pw, bf[1][1]);
+    gather<H>(c0, c1, x);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = rnd(x[i], p.a_sft);
+  }
+  // forward stage 2: coef = round(tmp @ M^T >> a+7)
+  stage<H>(x, bf[2]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = rnd(x[i], p.a_sft + 7);
 
-  // RDOQ (reference src/HEVCe.c:526-592), as csrc/fused_eval.cu
-  const int absval = abs(coef);
-  const int dlevel = absval > 0x1FFFF
-      ? p.max_dlevel : min((absval & 0x1FFFF) << 14, p.max_dlevel);
-  const int level0 = min(max((dlevel + p.add) >> p.sft, -32768), 32767);
-  int best_l = level0;
-  int best_c = cost_of(dlevel, level0, p);
-  for (int dd = 1; dd <= 2; ++dd) {
-    const int lv = level0 - dd;
-    const int cst = cost_of(dlevel, max(lv, 0), p);
-    if (level0 >= dd && cst < best_c) {
-      best_l = lv;
-      best_c = cst;
+  // RDOQ and the CG kill: a 4x4 block is one CG, kept iff
+  // sum(min(dlevel, thr)) >= thr
+  int dlevel[N];
+  rdoq<N>(x, dlevel, p, p.th[lane & 7]);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    int kill = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kill += min(dlevel[4 * h + j], p.thr);
+    const bool keep = sum4(kill) >= p.thr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[4 * h + j] = keep ? x[4 * h + j] : 0;
+    if (live[h])
+      *reinterpret_cast<int4*>(q_out + (size_t)b[h] * 16 + 4 * t) =
+          make_int4(x[4 * h], x[4 * h + 1], x[4 * h + 2], x[4 * h + 3]);
+  }
+
+  // dequant: clip16(q * 2^q_sft); |q| * 2^9 < 2^24
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = clip16(x[i] * (1 << p.q_sft));
+  // inverse stage 1: clip16(round(M^T @ dq >> 7))
+  stage<H>(x, bf[3]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = clip16(rnd(x[i], 7));
+  // inverse stage 2: round(tmp @ M >> 12) (its clip16 cannot change the
+  // recon: |r| < 2^11 and pred is 0..255); recon; SSE
+  stage<H>(x, bf[4]);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    int sse = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int recon =
+          min(max(rnd(x[4 * h + j], 12) + ubyte(pw[h], j), 0), 255);
+      const int d = ubyte(bw[h], j) - recon;
+      sse += d * d;
     }
+    sse = sum4(sse);
+    if (live[h] && t == 0) sse_out[b[h]] = sse;
   }
-  const int signed_l = coef < 0 ? -best_l : best_l;
-  // the CG kill: a 4x4 block is one CG, kept iff sum(min(dlevel, thr)) >= thr
-  const int qv = sum16(min(dlevel, p.thr)) >= p.thr ? signed_l : 0;
-  if (live) q_out[b * 16 + e] = qv;
-
-  // dequant: clip16(q * 2^q_sft); |q| * 2^9 < 2^24. X is free: stage 2
-  // read it before the last barrier.
-  X[r][e] = clip16(qv * (1 << p.q_sft));
-  __syncthreads();
-  // inverse stage 1: clip16(round(M^T @ dq >> 7)); |dq| <= 2^15: 3 digits
-  if (mma_warp) stage<3>(X, O, bf[2], warp, lane);
-  __syncthreads();
-  X[r][e] = clip16(rnd(O[r][e], 7));
-  __syncthreads();
-  // inverse stage 2: clip16(round(tmp @ M >> 12)); recon; SSE
-  if (mma_warp) stage<3>(X, O, bf[3], warp, lane);
-  __syncthreads();
-  const int recon = min(max(clip16(rnd(O[r][e], 12)) + pv, 0), 255);
-  const int d = bv - recon;
-  const int sse = sum16(d * d);
-  if (live && e == 0) sse_out[b] = sse;
 }
 
 }  // namespace
 
 extern "C" {
 
-// P1: x[0 .. n) += 1 on `stream`. Returns cudaGetLastError().
-int hevce_p1_add_one(void* x, long long n, void* stream) {
-  const long long blocks = (n + 255) / 256;
-  if (n > 0)
-    p1_add_one<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int*>(x), n);
+// P1: x[0 .. n) += 1 on `stream` (n < 2^31): a thread per 16-byte word
+// where x is 16-byte aligned, one per element past them (all, where it is
+// not), 256 threads a block (one block for the probe's (8, 128), one thread
+// at one element). Returns cudaGetLastError().
+int hevce_p1_add_one(void* x, int n, void* stream) {
+  if (n > 0) {
+    const int n4 = (uintptr_t)x % 16 == 0 ? n / 4 : 0;
+    const int threads = n4 + (n - 4 * n4);
+    const int per_block = threads < 256 ? threads : 256;
+    p1_add_one<<<(threads + per_block - 1) / per_block, per_block, 0,
+                 static_cast<cudaStream_t>(stream)>>>(static_cast<int*>(x),
+                                                      n4, n);
+  }
   return cudaGetLastError();
 }
 
@@ -437,33 +534,49 @@ int hevce_p2_int8_mm(const void* a, const void* b, void* out, int M, int K,
   return cudaGetLastError();
 }
 
-// P3: the fused 4x4 eval over n_blocks candidate blocks (rows of pred, 16
-// bytes each), `modes` blocks per original block. kron: the four 16x16 int8
-// stage matrices on the device (fwd 1, fwd 2, inv 1, inv 2). Shifts are
-// the 4x4 table entries (FWD_SHIFT_A, QUANT_DIST_SHIFT, QUANT_LEVEL_SHIFT,
-// DEQUANT_SHIFT); wd / wb the qpd6's RD-cost weights; lvl6 (host memory) the
-// first 6 entries of LEVEL_RATE_TABLE. Returns cudaGetLastError().
+// P3: the fused 4x4 eval over n_blocks (< 2^31) candidate blocks (rows of
+// pred, 16 bytes each; pred and blk 4-byte aligned, q 16-byte aligned),
+// `modes` blocks per original block; a block's blk row is n / modes =
+// umulhi(n, div_mul) >> div_shr (modes > 1). kron: the five 16x16 int8
+// stage matrices on the device (fwd 1, -fwd 1, fwd 2, inv 1, inv 2), rows
+// permuted by ops/probes.py::P3_ORDER. Shifts are the 4x4 table entries
+// (FWD_SHIFT_A, QUANT_LEVEL_SHIFT, DEQUANT_SHIFT); th8 (host memory) the
+// qpd6's RDOQ thresholds (ops/probes.py::p3_rdoq_thresholds); tile (16 or
+// 8) the candidate blocks a warp takes; warps (1-4) the warps a thread
+// block. Returns cudaGetLastError().
 int hevce_p3_fused4(const void* pred, const void* blk, const void* kron,
-                    long long n_blocks, int modes, int a_sft, int dist_sft,
-                    int level_sft, int dequant_sft, int qpd6, int wd, int wb,
-                    const int* lvl6, void* q, void* sse, void* stream) {
+                    int n_blocks, int modes, unsigned div_mul,
+                    unsigned div_shr, int a_sft, int level_sft,
+                    int dequant_sft, int qpd6, const int* th8, int tile,
+                    int warps, void* q, void* sse, void* stream) {
   P3Params p;
   p.a_sft = a_sft;
-  p.dist_sft = dist_sft;
   p.sft = level_sft + qpd6;
   p.add = 1 << p.sft >> 1;
   p.max_dlevel = kI32Max - p.add;
   p.thr = 9 << p.sft >> 2;
   p.q_sft = dequant_sft + qpd6;
-  p.wd = wd;
-  p.wb = wb;
-  for (int i = 0; i < 6; ++i) p.lvl[i] = lvl6[i];
-  const long long blocks = (n_blocks + 15) / 16;
-  if (n_blocks > 0)
-    p3_fused4<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(pred), static_cast<const uint8_t*>(blk),
-        static_cast<const int8_t*>(kron), n_blocks, modes, p,
-        static_cast<int*>(q), static_cast<int*>(sse));
+  p.modes = modes;
+  p.div_mul = div_mul;
+  p.div_shr = div_shr;
+  for (int i = 0; i < 8; ++i) p.th[i] = th8[i];
+  warps = warps < 1 ? 1 : (warps > 4 ? 4 : warps);
+  const auto* pp = static_cast<const uint8_t*>(pred);
+  const auto* pb = static_cast<const uint8_t*>(blk);
+  const auto* pk = static_cast<const int8_t*>(kron);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int tiles = (n_blocks + tile - 1) / tile;
+  const int grid = (tiles + warps - 1) / warps;
+  if (n_blocks > 0) {
+    if (tile == 8)
+      p3_fused4<1><<<grid, 32 * warps, 0, s>>>(pp, pb, pk, n_blocks, p,
+                                               static_cast<int*>(q),
+                                               static_cast<int*>(sse));
+    else
+      p3_fused4<2><<<grid, 32 * warps, 0, s>>>(pp, pb, pk, n_blocks, p,
+                                               static_cast<int*>(q),
+                                               static_cast<int*>(sse));
+  }
   return cudaGetLastError();
 }
 

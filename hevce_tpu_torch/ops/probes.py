@@ -6,8 +6,9 @@ the kernels written by hand in csrc/probes.cu:
   P1 add_one   x += 1 on an (8, 128) int32 buffer: the cost of one launch
   P2 int8_mm   int8 x int8 -> int32 product on the tensor cores (mma.sync)
   P3 fused4    the 4x4 candidate eval (residual -> DST4 -> RDOQ -> dequant
-               -> inverse -> recon -> per-mode SSE) with its transform stages
-               as int8 mma.sync products of base-128 digits
+               -> inverse -> recon -> per-mode SSE), one warp a tile of 16
+               candidate blocks, its transform stages as int8 mma.sync
+               products of base-128 digits
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 LAUNCHES[name]; CPU tensors take the plain version. There is no fallback
@@ -33,6 +34,16 @@ HEADER = SOURCE.parent / "mma_s8.cuh"
 LIB_NAME = "libhevce_probes.so"
 SZ = 4                # P3's block size
 NN = SZ * SZ
+# P3's candidate blocks a warp (16, the mma's rows, or 8: half of them
+# left zero, twice the warps) and warps a thread block (1-4): 1,120 tiles of
+# 16 at 512 x 35, so 280 blocks of 4 warps, all in one wave on 132 SMs
+P3_TILE = 16
+P3_WARPS = 4
+# the rows of P3's stage matrices in the kernel's order: after a stage's two
+# m16n8k16 products thread (g, t) holds output columns 2t, 2t+1, 8+2t, 9+2t,
+# and P3_ORDER[n] is the coefficient (raster index) computed in column n,
+# so those are coefficients 4t .. 4t+3, the next stage's A fragment
+P3_ORDER = np.array([0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15])
 
 # kernel launches made by the wrappers (CUDA route); a captured CUDA graph
 # counts its launches once, at capture
@@ -74,6 +85,63 @@ def kron_inv(sz: int):
                 a[i * sz + j, k * sz + j] = m[k, i]
                 b[i * sz + j, i * sz + k] = m[k, j]
     return a.astype(np.int8), b.astype(np.int8)
+
+
+def p3_stage_matrices():
+    """P3's five stage matrices as the kernel reads them: (5, 16, 16) int8,
+    forward 1 (for blk), forward 1 negated (for pred), forward 2, inverse 1
+    and 2, each row-major with its rows (output coefficients) in P3_ORDER
+    and its columns (input coefficients) in raster order."""
+    f1, f2 = kron_stage(SZ)
+    return np.stack((f1, -f1, f2) + kron_inv(SZ))[:, P3_ORDER]
+
+
+def divisor_magic(d: int):
+    """(mul, shr) with n // d == (n * mul >> 32) >> shr for 0 <= n < 2^31
+    and 2 <= d < 2^31 (Granlund and Montgomery's round-up method, as
+    CUTLASS's FastDivmod: p = 31 + ceil(log2 d), mul = ceil(2^p / d)); d = 1
+    gives (0, 0), which P3 reads as n itself."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()
+    return -(-(1 << p) // d), p - 32
+
+
+@functools.lru_cache(maxsize=None)
+def p3_rdoq_thresholds(qpd6: int):
+    """P3's RDOQ at 4x4 as 8 thresholds on e0 = dlevel - (level0 << sft)
+    (csrc/probes.cu::rdoq): the level goes down by one iff e0 < th[k], k
+    the class of level0's rate step (level0 for 0 .. 6; 7 above, where
+    level0 - 5 is a power of two; 0 where the rate does not step). Made
+    from the costs of the two top candidates, wd * (dist1 - dist0) < wb *
+    (rate(level0) - rate(level0 - 1)), over every e0 a |coef| can give;
+    raises unless that choice is e0 below one threshold for each class (it
+    is, at every qpd6: the difference rises with e0 wherever it decides)."""
+    sft = int(C.QUANT_LEVEL_SHIFT[SZ]) + qpd6
+    i32_max, step = 2**31 - 1, 1 << sft
+    dl = np.minimum(np.arange(0x20000, dtype=np.int64) << 14,
+                    i32_max - (step >> 1))
+    e0 = np.unique(dl - ((dl + (step >> 1)) >> sft << sft))
+    d0 = np.abs(e0) >> int(C.QUANT_DIST_SHIFT[SZ])
+    d1 = (e0 + step) >> int(C.QUANT_DIST_SHIFT[SZ])
+    dist = lambda d: np.where(d < 46340, d * d, i32_max) >> 7
+    f = int(C.RDCOST_WEIGHT_DIST[qpd6]) * (dist(d1) - dist(d0))
+    lvl = [int(v) for v in C.LEVEL_RATE_TABLE[:6]]
+    # rate(l) - rate(l - 1): none, the table's steps, its last entry to
+    # the rate of level 6 (92000 + (4 << 15)), 2^16 at a power of two
+    steps = ([0] + [lvl[k] - lvl[k - 1] for k in range(1, 6)]
+             + [92000 + (4 << 15) - lvl[5], 1 << 16])
+    th = []
+    for dr in steps:
+        down = f < int(C.RDCOST_WEIGHT_BITS[qpd6]) * dr
+        t = int(e0[~down].min()) if (~down).any() else int(e0.max()) + 1
+        if not np.array_equal(down, e0 < t):
+            raise ValueError(f"P3's RDOQ is no threshold at qpd6={qpd6}, "
+                             f"rate step {dr}")
+        th.append(t)
+    return tuple(th)
 
 
 # ----------------------------------------------------------- plain versions
@@ -146,24 +214,25 @@ def _load():
             lib = ctypes.CDLL(str(path))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.hevce_p1_add_one.restype = i32
-            lib.hevce_p1_add_one.argtypes = [vp, ctypes.c_longlong, vp]
+            lib.hevce_p1_add_one.argtypes = [vp, i32, vp]
             lib.hevce_p2_int8_mm.restype = i32
             lib.hevce_p2_int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, vp]
             lib.hevce_p3_fused4.restype = i32
+            u32 = ctypes.c_uint
             lib.hevce_p3_fused4.argtypes = (
-                [vp, vp, vp, ctypes.c_longlong] + [i32] * 8
-                + [ctypes.POINTER(i32), vp, vp, vp])
+                [vp, vp, vp, i32, i32, u32, u32] + [i32] * 4
+                + [ctypes.POINTER(i32), i32, i32, vp, vp, vp])
             _lib = lib
         return _lib
 
 
 def _kron_device(device: torch.device):
-    """the four P3 stage matrices (fwd 1, fwd 2, inv 1, inv 2) as one
-    (4, 16, 16) int8 tensor on `device`, uploaded once."""
+    """p3_stage_matrices() as one (5, 16, 16) int8 tensor on `device`,
+    uploaded once."""
     with _lock:
         if device not in _kron_cache:
-            mats = np.stack(kron_stage(SZ) + kron_inv(SZ))
-            _kron_cache[device] = torch.from_numpy(mats).to(device)
+            _kron_cache[device] = torch.from_numpy(
+                np.ascontiguousarray(p3_stage_matrices())).to(device)
         return _kron_cache[device]
 
 
@@ -194,6 +263,9 @@ def add_one(x):
     _on_cuda("add_one", x)
     if x.dtype != torch.int32:
         raise TypeError(f"add_one takes int32, got {x.dtype}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"add_one takes fewer than 2^31 elements, got "
+                         f"{x.numel()}")
     lib = _load()
     _launched("add_one", lib.hevce_p1_add_one(x.data_ptr(), x.numel(),
                                               _stream(x)))
@@ -235,17 +307,22 @@ def fused4(pred, blk, qpd6: int = 2):
                          f"(rows, modes * 16) / (rows, 16) / 0-4")
     rows, w = pred.shape
     modes = w // NN
+    if rows * modes >= 2**31:
+        raise ValueError(f"fused4 takes fewer than 2^31 candidate blocks, "
+                         f"got {rows} x {modes}")
+    if pred.data_ptr() % 4 or blk.data_ptr() % 4:
+        raise ValueError("fused4 takes pred and blk 4-byte aligned (it loads "
+                         "4 bytes of a block at a time)")
     q = torch.empty((rows, w), dtype=torch.int32, device=pred.device)
     sse = torch.empty((rows, modes), dtype=torch.int32, device=pred.device)
     if modes == 0:
         return q, sse
     lib = _load()
     kron = _kron_device(pred.device)
-    lvl = (ctypes.c_int * 6)(*(int(v) for v in C.LEVEL_RATE_TABLE[:6]))
+    th = (ctypes.c_int * 8)(*p3_rdoq_thresholds(qpd6))
     _launched("fused4", lib.hevce_p3_fused4(
         pred.data_ptr(), blk.data_ptr(), kron.data_ptr(), rows * modes, modes,
-        int(C.FWD_SHIFT_A[SZ]), int(C.QUANT_DIST_SHIFT[SZ]),
-        int(C.QUANT_LEVEL_SHIFT[SZ]), int(C.DEQUANT_SHIFT[SZ]), qpd6,
-        int(C.RDCOST_WEIGHT_DIST[qpd6]), int(C.RDCOST_WEIGHT_BITS[qpd6]), lvl,
-        q.data_ptr(), sse.data_ptr(), _stream(pred)))
+        *divisor_magic(modes), int(C.FWD_SHIFT_A[SZ]),
+        int(C.QUANT_LEVEL_SHIFT[SZ]), int(C.DEQUANT_SHIFT[SZ]), qpd6, th,
+        P3_TILE, P3_WARPS, q.data_ptr(), sse.data_ptr(), _stream(pred)))
     return q, sse

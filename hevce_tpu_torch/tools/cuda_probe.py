@@ -37,6 +37,10 @@ P1_LENGTHS = (64, 1024)
 P2_SHAPE = (512, 64, 64)             # M, K, N
 P2_LARGE = (4096, 4096, 4096)
 P3_ROWS, P3_MODES = 512, 35          # the TPU probe's B=32 x R=16 lanes
+# row counts P3 is held to its references at on the card: the probe's, one
+# that is a whole number of waves of 256-thread tiles (480), and ragged
+# warp tiles (1 row: 35 blocks; 17: the last tile 3 rows; 511)
+P3_ROWS_CHECKED = (512, 480, 1, 17, 511)
 P3_CHAIN = 16
 QPD6 = 2
 
@@ -193,7 +197,7 @@ def p3_inputs(rng, rows=P3_ROWS, modes=P3_MODES):
         -6, 7, (third, modes, 16))
     pred[2 * third:] = rng.integers(0, 256, (rows - 2 * third, modes, 1))
     pred[0], blk[0] = 0, 255
-    pred[1], blk[1] = 255, 0
+    pred[1:2], blk[1:2] = 255, 0        # (none at one row)
     u8 = lambda a: np.clip(a, 0, 255).astype(np.uint8)
     return u8(pred).reshape(rows, modes * 16), u8(blk)
 

@@ -9,6 +9,9 @@ kernels, so a whole 768x512 slice (54 steps) would make a trace of millions
 of events. Writes the Chrome trace into --logdir and prints the top-K
 kernels by card time with their launch counts, the card's total, and the
 window's wall time (a warm-up on small crops of the images comes first).
+On the card the first line also says whether the trace holds every launch
+of the port's kernels (utils/tracing.device_trace's lost_launches): a trace
+that lost launches is flagged, never reported as whole.
 On the CPU (--device cpu) it ranks the operators by
 host time instead (inclusive of the operators they call), and says so: the
 CPU has no card time.
@@ -125,9 +128,14 @@ def main(argv=None, out=print):
         batch()
         wall = time.perf_counter() - t0
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    lost = got["prof"].lost_launches
+    check = ("" if dev.type != "cuda" else
+             f"; LOST LAUNCHES (wrappers' count minus the trace's): {lost}"
+             if lost else "; the trace holds every launch the port's "
+             "wrappers made")
     out(f"batch: B={len(imgs)} {w}x{h} qpd6={QPD6} on {name}: {D} front "
         f"steps, {wall:.3f} s wall with the trace; trace of {fronts} steps "
-        f"in {args.logdir}")
+        f"in {args.logdir}{check}")
     kind = DeviceType.CUDA if dev.type == "cuda" else DeviceType.CPU
     report(timing.event_totals(got["prof"], kind), dev, fronts, got["wall"],
            args.top, out)

@@ -13,16 +13,22 @@ from torch.profiler import ProfilerActivity, profile
 
 from hevce_tpu_torch.utils.tracing import keep_cupti
 
-# card_ms runs a profiler session that recorded no kernel, or lost
-# launches, again, up to this many sessions in all, before it times with
-# busy_events_ms instead
+# a profiler session that recorded no kernel, or lost launches, is run
+# again, up to this many sessions in all (card_kernels); then card_ms times
+# with busy_events_ms instead, and a trace is reported as incomplete
 PROFILE_TRIES = 3
+# host idle at the start of every profiler session, before its work: the
+# card's kernel timestamps can run ahead of the host clock that opens
+# Kineto's window (by up to 5.6 ms on an H100, tools/profiler_sessions), and
+# Kineto drops a kernel stamped before the window opened ("Out-of-range"),
+# so a session lost its first launches
+PROFILE_PAD_S = 0.01
 # spin cycles per second of host enqueue in busy_events_ms: the H100's
 # 1.98 GHz boost clock, rounded up, so the spin outlasts the enqueue
 SPIN_CYCLES_PER_S = 2e9
-# card_ms's sessions that recorded no kernel or lost launches, and card_ms
+# profiler sessions that recorded no kernel or lost launches, and card_ms
 # calls timed by busy_events_ms, since the process began
-EMPTY_SESSIONS = 0
+LOST_SESSIONS = 0
 EVENT_TIMED = 0
 
 
@@ -80,31 +86,77 @@ def event_totals(prof, device_type=DeviceType.CUDA):
     return agg
 
 
-def card_kernels(fn):
-    """run fn under torch.profiler: [(name, card microseconds, launches)]
-    for every kernel the card ran."""
+def wrapper_launches() -> dict:
+    """{a substring of a kernel's name: the launches its wrapper has
+    counted} for the port's kernels (each wrapper counts a launch where it
+    makes one; a CUDA graph's replays are not counted)."""
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval, probes
+
+    return {"k1_kernel": fused_eval.LAUNCHES, "k2_kernel": cabac_scan.LAUNCHES,
+            "p1_add_one": probes.LAUNCHES["add_one"],
+            "p2_int8_mm": probes.LAUNCHES["int8_mm"],
+            "p3_fused4": probes.LAUNCHES["fused4"]}
+
+
+def lost_launches(kernels, before, after) -> dict:
+    """{kernel: launches its wrapper counted between `before` and `after`
+    (wrapper_launches()) minus the launches a session's `kernels` [(name,
+    us, n)] record}, for the kernels where the two differ."""
+    lost = {}
+    for key in before:
+        seen = sum(n for name, _, n in kernels if key in name)
+        if after[key] - before[key] != seen:
+            lost[key] = after[key] - before[key] - seen
+    return lost
+
+
+def profiled(fn):
+    """one torch.profiler session of fn, begun with PROFILE_PAD_S of host
+    idle and ended by draining the card's queue: ([(name, card
+    microseconds, launches)] for every kernel the card ran, lost_launches()
+    of the session)."""
     keep_cupti()
+    before = wrapper_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
-    return [(name, us, n) for name, (us, n) in event_totals(prof).items()]
+    kernels = [(name, us, n) for name, (us, n) in event_totals(prof).items()]
+    return kernels, lost_launches(kernels, before, wrapper_launches())
+
+
+def card_kernels(fn, whole=lambda kernels: True):
+    """run fn under torch.profiler: ([(name, card microseconds, launches)]
+    for every kernel the card ran, complete). A session that recorded no
+    kernel, recorded fewer launches of one of the port's kernels than its
+    wrapper made, or fails `whole` is run again (counted in LOST_SESSIONS);
+    after PROFILE_TRIES such sessions the last one comes back with complete
+    False. fn must be one that can run again."""
+    global LOST_SESSIONS
+    for _ in range(PROFILE_TRIES):
+        kernels, lost = profiled(fn)
+        if kernels and not lost and whole(kernels):
+            return kernels, True
+        LOST_SESSIONS += 1
+    return kernels, False
 
 
 def card_ms(fn, reps):
     """mean card milliseconds per call of fn: the kernels' own time, summed
     by torch.profiler over `reps` calls. Each call launches the same
     kernels, so each kernel's count in a whole session is a multiple of
-    `reps`; a session where one is not lost launches (or held one-time
-    work of a first call). Such a session, or one that recorded no kernel,
-    is run again; after PROFILE_TRIES of them the time is busy_events_ms's,
-    said on stderr and counted in EVENT_TIMED."""
-    global EMPTY_SESSIONS, EVENT_TIMED
-    for _ in range(PROFILE_TRIES):
-        kernels = card_kernels(lambda: [fn() for _ in range(reps)])
-        if kernels and all(n % reps == 0 for _, _, n in kernels):
-            return sum(us for _, us, _ in kernels) / 1e3 / reps
-        EMPTY_SESSIONS += 1
+    `reps`; a session where one is not, or where the port's wrappers
+    launched more than it recorded, lost launches (or held one-time work of
+    a first call) and is run again (card_kernels); after PROFILE_TRIES of
+    them the time is busy_events_ms's, said on stderr and counted in
+    EVENT_TIMED."""
+    global EVENT_TIMED
+    kernels, complete = card_kernels(
+        lambda: [fn() for _ in range(reps)],
+        lambda ks: all(n % reps == 0 for _, _, n in ks))
+    if complete:
+        return sum(us for _, us, _ in kernels) / 1e3 / reps
     EVENT_TIMED += 1
     print(f"timing.card_ms: {PROFILE_TRIES} profiler sessions recorded no "
           f"kernel or lost launches; timed with CUDA events behind a spin "

@@ -46,17 +46,30 @@ class PhaseTimer:
 def device_trace(logdir):
     """Trace the enclosed work with torch.profiler (CPU activity, and CUDA
     where a card is present) and write a Chrome trace (trace.json, for
-    chrome://tracing or Perfetto) into `logdir`. Yields the profiler, whose
-    key_averages() sum the time by operator and kernel once the block ends.
-    The counterpart of hevce_tpu/utils/tracing.device_trace."""
+    chrome://tracing or Perfetto) into `logdir`. The window opens
+    utils/timing.PROFILE_PAD_S before the block runs, so that no kernel of
+    it is stamped before the window. Yields the profiler, whose
+    key_averages() sum the time by operator and kernel once the block ends,
+    and whose `lost_launches` is then utils/timing.lost_launches of the
+    trace: the port's kernels whose wrappers launched more than the trace
+    recorded ({} when it holds every launch). The counterpart of
+    hevce_tpu/utils/tracing.device_trace."""
+    from hevce_tpu_torch.utils import timing
+
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     out = pathlib.Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
     keep_cupti()
+    before = timing.wrapper_launches()
     with profile(activities=acts) as prof:
+        time.sleep(timing.PROFILE_PAD_S)
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+    kernels = [(name, us, n) for name, (us, n)
+               in timing.event_totals(prof).items()]
+    prof.lost_launches = timing.lost_launches(kernels, before,
+                                              timing.wrapper_launches())
     prof.export_chrome_trace(str(out / "trace.json"))

@@ -23,8 +23,9 @@ from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.tools import (bench_fused, bench_k2, cuda_probe,
                                    profile_front)
+from hevce_tpu_torch.utils import timing
 from hevce_tpu_torch.utils.imageio import write_pgm
-from hevce_tpu_torch.utils.tracing import PhaseTimer
+from hevce_tpu_torch.utils.tracing import PhaseTimer, device_trace
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -285,6 +286,25 @@ def test_p1_add_one_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (1027, 0), (4098, 0),
+                                      (70001, 0), (1027, 1), (5, 3)])
+def test_p1_add_one_at_ragged_sizes_on_card(cuda_device, n, offset):
+    """16-byte words and the scalar tail (n not a multiple of 4), more than
+    one block, and a buffer that is not 16-byte aligned (offset elements
+    into its allocation: all scalar)."""
+    rng = np.random.default_rng(n + offset)
+    base = torch.from_numpy(rng.integers(-2**30, 2**30, n + offset)
+                            .astype(np.int32)).to(cuda_device)
+    x = base[offset:]
+    want = probes.add_one_plain(x)
+    n0 = probes.LAUNCHES["add_one"]
+    assert probes.add_one(x) is x
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["add_one"] == n0 + 1
+    assert torch.equal(x, want)
+
+
+@pytest.mark.cuda
 def test_p1_in_a_captured_cuda_graph(cuda_device):
     x = torch.zeros((8, 128), dtype=torch.int32, device=cuda_device)
     probes.add_one(x)                      # load the library before capture
@@ -336,7 +356,10 @@ def test_p2_int8_mm_matches_plain_on_card(cuda_device, M, K, N, fill):
 @pytest.mark.parametrize("qpd6", range(5))
 def test_p3_fused4_matches_plain_and_k1_on_card(cuda_device, qpd6):
     rng = np.random.default_rng(20 + qpd6)
-    for rows, modes in ((512, 35), (37, 35), (9, 4)):    # ragged last tiles
+    # ragged last warp tiles (17 x 35 = 595 blocks, 37 tiles and 3 rows;
+    # 1 x 35; 511 x 35), fewer modes than a tile's rows (9 x 4)
+    for rows, modes in ((512, 35), (511, 35), (17, 35), (1, 35), (37, 35),
+                        (9, 4)):
         pred, blk = (torch.from_numpy(a).to(cuda_device)
                      for a in cuda_probe.p3_inputs(rng, rows, modes))
         n0 = probes.LAUNCHES["fused4"]
@@ -354,6 +377,18 @@ def test_p2_and_p3_issue_int8_tensor_core_instructions(cuda_device):
     counts = probes.imma_counts(probes.build()[0])
     for kern in ("p2_int8_mm", "p3_fused4"):
         assert any(kern in fn and n > 0 for fn, n in counts.items()), counts
+
+
+@pytest.mark.cuda
+def test_p3_runs_without_barriers_or_shared_memory(cuda_device):
+    """one warp a tile: the stages hand over in registers (no BAR, LDS, STS
+    in p3_fused4's SASS), with two products a digit and two digits a stage
+    (16 IMMA)."""
+    path = probes.build()[0]
+    for op, want in ((" BAR.", 0), (" LDS", 0), (" STS", 0), ("IMMA", 16)):
+        counts = [n for fn, n in probes.sass_counts(path, op).items()
+                  if "p3_fused4" in fn]
+        assert counts and all(n == want for n in counts), (op, counts)
 
 
 @pytest.mark.cuda
@@ -376,6 +411,9 @@ def test_probe_wrappers_reject_what_they_do_not_take(cuda_device):
         probes.fused4(pred[:, :-1].contiguous(), blk)
     with pytest.raises(ValueError):
         probes.fused4(pred, blk.cpu())
+    flat = torch.zeros(4 * 35 * 16 + 1, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):   # 4-byte loads
+        probes.fused4(flat[1:].view(4, 35 * 16), blk)
     with pytest.raises(TypeError):
         probes.add_one(pred)
 
@@ -399,6 +437,27 @@ def test_measurement_tools_on_card(cuda_device, tmp_path):
     assert any(ln.startswith("card time:") for ln in lines)
 
 
+@pytest.mark.cuda
+def test_a_profiled_window_holds_every_k1_launch_or_says_so(cuda_device,
+                                                            tmp_path):
+    """A profiler window's K1 count is the wrapper counter's delta: a
+    card_kernels session that lost launches is run again and, if every try
+    lost some, comes back marked incomplete; device_trace names what it
+    lost. Never a short count passed off as whole."""
+    pred, blk = (t.to(cuda_device) for t in _inputs(4, 35, 2, lanes=288))
+    calls = lambda: [fused_eval.pipeline_sse(4, 2, pred, blk)
+                     for _ in range(20)]
+    kernels, complete = timing.card_kernels(calls)
+    seen = sum(n for k, _, n in kernels if "k1_kernel" in k)
+    assert (seen == 20) if complete else (seen < 20)
+    with device_trace(tmp_path / "t") as prof:
+        calls()
+    seen = sum(n for k, (_, n) in timing.event_totals(prof).items()
+               if "k1_kernel" in k)
+    assert prof.lost_launches == ({} if seen == 20
+                                  else {"k1_kernel": 20 - seen})
+
+
 # run as a process of its own (test_card_times_after_a_graph_capture), so
 # that what the test process ran before cannot change it
 GRAPH_SESSIONS = """
@@ -414,7 +473,8 @@ with torch.cuda.graph(g):
     step()
 g.replay()
 for _ in range(30):
-    assert timing.card_kernels(lambda: [step() for _ in range(5)])
+    kernels, complete = timing.card_kernels(lambda: [step() for _ in range(5)])
+    assert kernels and complete
 assert timing.busy_events_ms(step, 50) < 0.5 * timing.cuda_ms(step, 50)
 """
 
