@@ -99,10 +99,9 @@ Phases, each printed as one JSON line:
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
 CUDA events instead (both 0 when the profiler worked throughout,
-utils/timing.card_kernels and card_ms), the card's name and power limit
-(nvidia-smi), the
-kernels line and, as the last line, {"ok": true,
-"device": {...}}. Any failure exits non-zero.
+utils/timing.card_kernels and card_ms; the reasons of the first 20 reruns),
+the card's name and power limit (nvidia-smi), the kernels line and, as the
+last line, {"ok": true, "device": {...}}. Any failure exits non-zero.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 
@@ -1044,10 +1043,10 @@ def phase_probes(torch, dev, rng):
     one = to(rng.integers(-2**30, 2**30, 1).astype(np.int32))
     want = probes.add_one_plain(one)
     held("add_one", "at one element", [probes.add_one(one)], [want])
-    # P3 at the probe's 512 rows, at 480 (its tiles a whole number of
-    # waves of the PR 3/4 kernel), and at ragged tile counts: 1 row (35
-    # blocks, 3 tiles), 17 (595, the last tile 3 rows), 511
-    for rows in cuda_probe.P3_ROWS_CHECKED:
+    # P3 at the probe's 512 rows, at 480 (a whole number of waves of 256
+    # threads a 16-block tile, 8 tiles an SM), and at ragged tile counts:
+    # 1 row (35 blocks, 3 tiles), 17 (595, the last tile 3 rows), 511
+    for rows in (512, 480, 1, 17, 511):
         for qpd6 in range(5):
             pred, blk = (to(a) for a in cuda_probe.p3_inputs(rng, rows))
             got = probes.fused4(pred, blk, qpd6)
@@ -1171,7 +1170,8 @@ def main():
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
     emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS,
-          "card_ms_event_timed": timing.EVENT_TIMED})
+          "card_ms_event_timed": timing.EVENT_TIMED,
+          "reruns": timing.RERUNS})
 
     print(card, flush=True)
 

@@ -281,6 +281,11 @@ p2_int8_mm(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
 // ------------------------------------------------------------------ P3
 
+// warp tiles (16 candidate blocks each) a thread block: 1,120 tiles at
+// 512 x 35, so 280 blocks of 4 warps, all in one wave on 132 SMs (1 or 2
+// warps a block measured no faster)
+constexpr int kP3Warps = 4;
+
 struct P3Params {
   int a_sft, sft, add, max_dlevel, thr, q_sft;
   int modes;
@@ -296,7 +301,7 @@ __device__ __forceinline__ int clip16(int x) {
   return min(max(x, -32768), 32767);
 }
 
-// RDOQ of N coefficients (reference src/HEVCe.c:526-592): the signed level
+// RDOQ of 8 coefficients (reference src/HEVCe.c:526-592): the signed level
 // of least RD cost among level0, level0 - 1 and level0 - 2 (strict <, so
 // ties keep the higher level), and each dlevel for the CG kill. At 4x4 the
 // costs never saturate and level0 - 2 never wins, so the choice is level0 -
@@ -309,15 +314,14 @@ __device__ __forceinline__ int clip16(int x) {
 // makes th for the qpd6 and checks that form against the full search over
 // every reachable e0; tests/test_torch_probes.py holds this kernel's form to
 // the full search for every |coef|. `th` is this lane's th[lane & 7], read
-// by a shuffle. Step by step over the N values, so their chains interleave.
-template <int N>
-__device__ __forceinline__ void rdoq(int (&x)[N], int (&dlevel)[N],
+// by a shuffle. Step by step over the 8 values, so their chains interleave.
+__device__ __forceinline__ void rdoq(int (&x)[8], int (&dlevel)[8],
                                      const P3Params& p, int th) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int i = 0; i < 8; ++i)
     dlevel[i] = min(min(abs(x[i]), 0x1FFFF) << 14, p.max_dlevel);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < 8; ++i) {
     const int l = (dlevel[i] + p.add) >> p.sft;
     const int e0 = dlevel[i] - (l << p.sft);
     const int k = l <= 6 ? l : (((l - 5) & (l - 6)) == 0 ? 7 : 0);
@@ -337,13 +341,12 @@ __device__ __forceinline__ void split256(const int* v, uint32_t& lo,
 }
 
 // the accumulators of a stage's two products (output columns 0-7 in c0,
-// 8-15 in c1) as this thread's coefficients 4t .. 4t+3 of row g (x[0..3])
-// and, with H = 2, of row g+8 (x[4..7])
-template <int H>
+// 8-15 in c1) as this thread's coefficients 4t .. 4t+3 of rows g (x[0..3])
+// and g+8 (x[4..7])
 __device__ __forceinline__ void gather(const int (&c0)[4], const int (&c1)[4],
-                                       int (&x)[4 * H]) {
+                                       int (&x)[8]) {
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
+  for (int h = 0; h < 2; ++h) {
     x[4 * h] = c0[2 * h];
     x[4 * h + 1] = c0[2 * h + 1];
     x[4 * h + 2] = c1[2 * h];
@@ -352,16 +355,13 @@ __device__ __forceinline__ void gather(const int (&c0)[4], const int (&c1)[4],
 }
 
 // One transform stage on the warp: x (this thread's coefficients 4t .. 4t+3
-// of the tile's rows g and, with H = 2, g+8; |x| < 2^15) becomes x @ K^T,
-// as hi @ K^T * 256 + lo @ K^T. bf: this thread's fragments of the permuted
-// K, rows g (output columns 0-7) and 8+g (8-15), k = 4t .. 4t+3. With
-// H = 1 the tile's rows 8-15 are zero.
-template <int H>
-__device__ __forceinline__ void stage(int (&x)[4 * H],
-                                      const uint32_t (&bf)[2]) {
-  uint32_t lo[2] = {0u, 0u}, hi[2] = {0u, 0u};
-#pragma unroll
-  for (int h = 0; h < H; ++h) split256(x + 4 * h, lo[h], hi[h]);
+// of the tile's rows g (x[0..3]) and g+8 (x[4..7]), |x| < 2^15) becomes
+// x @ K^T, as hi @ K^T * 256 + lo @ K^T. bf: this thread's fragments of the
+// permuted K, rows g (output columns 0-7) and 8+g (8-15), k = 4t .. 4t+3.
+__device__ __forceinline__ void stage(int (&x)[8], const uint32_t (&bf)[2]) {
+  uint32_t lo[2], hi[2];
+  split256(x, lo[0], hi[0]);
+  split256(x + 4, lo[1], hi[1]);
   int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
   mma_s8(c0, hi, bf[0]);
   mma_s8(c1, hi, bf[1]);
@@ -372,7 +372,7 @@ __device__ __forceinline__ void stage(int (&x)[4 * H],
   }
   mma_u8s8(c0, lo, bf[0]);
   mma_u8s8(c1, lo, bf[1]);
-  gather<H>(c0, c1, x);
+  gather(c0, c1, x);
 }
 
 // sum over the quad of lanes that hold one candidate block
@@ -385,30 +385,21 @@ __device__ __forceinline__ int ubyte(uint32_t w, int j) {
   return __byte_perm(w, 0u, 0x4440 + j);
 }
 
-// a warp per tile of 8 * H candidate blocks (H = 2: the tile's 16 rows;
-// H = 1: 8, the mma's rows 8-15 left zero)
-template <int H>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(32 * kP3Warps)
 p3_fused4(const uint8_t* __restrict__ pred, const uint8_t* __restrict__ blk,
           const int8_t* __restrict__ kron, int n_blocks, P3Params p,
           int* __restrict__ q_out, int* __restrict__ sse_out) {
-  constexpr int N = 4 * H;             // coefficients a thread owns
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int b0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 8 * H;
+  const int b0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 16;
   if (b0 >= n_blocks) return;          // a whole warp past the last tile
-  int b[H];
-  bool live[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    b[h] = b0 + g + 8 * h;
-    live[h] = b[h] < n_blocks;
-  }
+  const int b[2] = {b0 + g, b0 + g + 8};
+  const bool live[2] = {b[0] < n_blocks, b[1] < n_blocks};
 
-  // pred and blk of coefficients 4t .. 4t+3 of the rows, a word each: as
+  // pred and blk of coefficients 4t .. 4t+3 of both rows, a word each: as
   // they stand, the A fragments (u8) of the first forward stage
   uint32_t pw[2] = {0u, 0u}, bw[2] = {0u, 0u};
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
+  for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
     const unsigned row = p.modes == 1
         ? (unsigned)b[h] : __umulhi((unsigned)b[h], p.div_mul) >> p.div_shr;
@@ -428,28 +419,28 @@ p3_fused4(const uint8_t* __restrict__ pred, const uint8_t* __restrict__ blk,
 
   // forward stage 1: tmp = round(M @ (blk - pred) >> a) = blk @ K^T +
   // pred @ (-K)^T, both u8; |tmp| <= 255 * 242 / 2 < 2^15
-  int x[N];
+  int x[8];
   {
     int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
     mma_u8s8(c0, bw, bf[0][0]);
     mma_u8s8(c1, bw, bf[0][1]);
     mma_u8s8(c0, pw, bf[1][0]);
     mma_u8s8(c1, pw, bf[1][1]);
-    gather<H>(c0, c1, x);
+    gather(c0, c1, x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = rnd(x[i], p.a_sft);
+    for (int i = 0; i < 8; ++i) x[i] = rnd(x[i], p.a_sft);
   }
   // forward stage 2: coef = round(tmp @ M^T >> a+7)
-  stage<H>(x, bf[2]);
+  stage(x, bf[2]);
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = rnd(x[i], p.a_sft + 7);
+  for (int i = 0; i < 8; ++i) x[i] = rnd(x[i], p.a_sft + 7);
 
   // RDOQ and the CG kill: a 4x4 block is one CG, kept iff
   // sum(min(dlevel, thr)) >= thr
-  int dlevel[N];
-  rdoq<N>(x, dlevel, p, p.th[lane & 7]);
+  int dlevel[8];
+  rdoq(x, dlevel, p, p.th[lane & 7]);
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
+  for (int h = 0; h < 2; ++h) {
     int kill = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) kill += min(dlevel[4 * h + j], p.thr);
@@ -463,16 +454,16 @@ p3_fused4(const uint8_t* __restrict__ pred, const uint8_t* __restrict__ blk,
 
   // dequant: clip16(q * 2^q_sft); |q| * 2^9 < 2^24
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = clip16(x[i] * (1 << p.q_sft));
+  for (int i = 0; i < 8; ++i) x[i] = clip16(x[i] * (1 << p.q_sft));
   // inverse stage 1: clip16(round(M^T @ dq >> 7))
-  stage<H>(x, bf[3]);
+  stage(x, bf[3]);
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = clip16(rnd(x[i], 7));
+  for (int i = 0; i < 8; ++i) x[i] = clip16(rnd(x[i], 7));
   // inverse stage 2: round(tmp @ M >> 12) (its clip16 cannot change the
   // recon: |r| < 2^11 and pred is 0..255); recon; SSE
-  stage<H>(x, bf[4]);
+  stage(x, bf[4]);
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
+  for (int h = 0; h < 2; ++h) {
     int sse = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -541,14 +532,13 @@ int hevce_p2_int8_mm(const void* a, const void* b, void* out, int M, int K,
 // stage matrices on the device (fwd 1, -fwd 1, fwd 2, inv 1, inv 2), rows
 // permuted by ops/probes.py::P3_ORDER. Shifts are the 4x4 table entries
 // (FWD_SHIFT_A, QUANT_LEVEL_SHIFT, DEQUANT_SHIFT); th8 (host memory) the
-// qpd6's RDOQ thresholds (ops/probes.py::p3_rdoq_thresholds); tile (16 or
-// 8) the candidate blocks a warp takes; warps (1-4) the warps a thread
-// block. Returns cudaGetLastError().
+// qpd6's RDOQ thresholds (ops/probes.py::p3_rdoq_thresholds). Returns
+// cudaGetLastError().
 int hevce_p3_fused4(const void* pred, const void* blk, const void* kron,
                     int n_blocks, int modes, unsigned div_mul,
                     unsigned div_shr, int a_sft, int level_sft,
-                    int dequant_sft, int qpd6, const int* th8, int tile,
-                    int warps, void* q, void* sse, void* stream) {
+                    int dequant_sft, int qpd6, const int* th8, void* q,
+                    void* sse, void* stream) {
   P3Params p;
   p.a_sft = a_sft;
   p.sft = level_sft + qpd6;
@@ -560,23 +550,13 @@ int hevce_p3_fused4(const void* pred, const void* blk, const void* kron,
   p.div_mul = div_mul;
   p.div_shr = div_shr;
   for (int i = 0; i < 8; ++i) p.th[i] = th8[i];
-  warps = warps < 1 ? 1 : (warps > 4 ? 4 : warps);
-  const auto* pp = static_cast<const uint8_t*>(pred);
-  const auto* pb = static_cast<const uint8_t*>(blk);
-  const auto* pk = static_cast<const int8_t*>(kron);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int tiles = (n_blocks + tile - 1) / tile;
-  const int grid = (tiles + warps - 1) / warps;
-  if (n_blocks > 0) {
-    if (tile == 8)
-      p3_fused4<1><<<grid, 32 * warps, 0, s>>>(pp, pb, pk, n_blocks, p,
-                                               static_cast<int*>(q),
-                                               static_cast<int*>(sse));
-    else
-      p3_fused4<2><<<grid, 32 * warps, 0, s>>>(pp, pb, pk, n_blocks, p,
-                                               static_cast<int*>(q),
-                                               static_cast<int*>(sse));
-  }
+  const int tiles = (n_blocks + 15) / 16;
+  if (n_blocks > 0)
+    p3_fused4<<<(tiles + kP3Warps - 1) / kP3Warps, 32 * kP3Warps, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(pred), static_cast<const uint8_t*>(blk),
+        static_cast<const int8_t*>(kron), n_blocks, p, static_cast<int*>(q),
+        static_cast<int*>(sse));
   return cudaGetLastError();
 }
 

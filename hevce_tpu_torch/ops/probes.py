@@ -7,8 +7,8 @@ the kernels written by hand in csrc/probes.cu:
   P2 int8_mm   int8 x int8 -> int32 product on the tensor cores (mma.sync)
   P3 fused4    the 4x4 candidate eval (residual -> DST4 -> RDOQ -> dequant
                -> inverse -> recon -> per-mode SSE), one warp a tile of 16
-               candidate blocks, its transform stages as int8 mma.sync
-               products of base-128 digits
+               candidate blocks, its transform stages as mma.sync products
+               of base-256 digits (u8 low, s8 high)
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 LAUNCHES[name]; CPU tensors take the plain version. There is no fallback
@@ -34,11 +34,6 @@ HEADER = SOURCE.parent / "mma_s8.cuh"
 LIB_NAME = "libhevce_probes.so"
 SZ = 4                # P3's block size
 NN = SZ * SZ
-# P3's candidate blocks a warp (16, the mma's rows, or 8: half of them
-# left zero, twice the warps) and warps a thread block (1-4): 1,120 tiles of
-# 16 at 512 x 35, so 280 blocks of 4 warps, all in one wave on 132 SMs
-P3_TILE = 16
-P3_WARPS = 4
 # the rows of P3's stage matrices in the kernel's order: after a stage's two
 # m16n8k16 products thread (g, t) holds output columns 2t, 2t+1, 8+2t, 9+2t,
 # and P3_ORDER[n] is the coefficient (raster index) computed in column n,
@@ -221,7 +216,7 @@ def _load():
             u32 = ctypes.c_uint
             lib.hevce_p3_fused4.argtypes = (
                 [vp, vp, vp, i32, i32, u32, u32] + [i32] * 4
-                + [ctypes.POINTER(i32), i32, i32, vp, vp, vp])
+                + [ctypes.POINTER(i32), vp, vp, vp])
             _lib = lib
         return _lib
 
@@ -324,5 +319,5 @@ def fused4(pred, blk, qpd6: int = 2):
         pred.data_ptr(), blk.data_ptr(), kron.data_ptr(), rows * modes, modes,
         *divisor_magic(modes), int(C.FWD_SHIFT_A[SZ]),
         int(C.QUANT_LEVEL_SHIFT[SZ]), int(C.DEQUANT_SHIFT[SZ]), qpd6, th,
-        P3_TILE, P3_WARPS, q.data_ptr(), sse.data_ptr(), _stream(pred)))
+        q.data_ptr(), sse.data_ptr(), _stream(pred)))
     return q, sse

@@ -37,10 +37,6 @@ P1_LENGTHS = (64, 1024)
 P2_SHAPE = (512, 64, 64)             # M, K, N
 P2_LARGE = (4096, 4096, 4096)
 P3_ROWS, P3_MODES = 512, 35          # the TPU probe's B=32 x R=16 lanes
-# row counts P3 is held to its references at on the card: the probe's, one
-# that is a whole number of waves of 256-thread tiles (480), and ragged
-# warp tiles (1 row: 35 blocks; 17: the last tile 3 rows; 511)
-P3_ROWS_CHECKED = (512, 480, 1, 17, 511)
 P3_CHAIN = 16
 QPD6 = 2
 

@@ -9,11 +9,15 @@ of the kernel beside the wrapper counter's delta (their difference is the
 launches lost), the profiler's counts of the launch API calls (cudaLaunch*
 / cuLaunch*) and of the kernels linked to them by correlation id, where in
 the session's order the lost launches were (their correlation ids were
-seen on the host but no kernel came), and the session's window: the host
+seen on the host but no kernel came), the session's window (the host
 clock at entry and exit against the first and last kernel the card
-reported (ns, the profiler's epoch clock). The kernels:
+reported, the profiler's epoch clock), and the least and the median time
+from a kernel's launch call to its start on the card: a negative least is
+how far the card's timestamps ran ahead of the host's. The kernels:
   k1     K1 at (4, 35), 288 lanes (fused_eval.pipeline_sse)
   p1     P1 on (8, 128) (probes.add_one)
+  p2big  P2 at (4096, 4096, 4096) (probes.int8_mm): the card busy to the
+         end of the session
   front  two wavefront front steps at the main path's 288 lanes (tens of
          thousands of kernels a session; K1 counted)
 
@@ -24,7 +28,7 @@ window; it prints one JSON summary per configuration. The factors:
 TEARDOWN_CUPTI 0 / 1, a graph capture first or not, the number of sessions
 and of kernels a session, one session per process, host idle at the start
 of each session (--pad-ms; --alternate pads every second session only, so
-one process compares the two).
+one process compares the two), the card busy to the session's end.
 
 Usage: python -m hevce_tpu_torch.tools.profiler_sessions --matrix [--out F]
        python -m hevce_tpu_torch.tools.profiler_sessions [--kernel k1]
@@ -54,6 +58,10 @@ def _kernel(torch, dev, name, rng):
         x = torch.zeros((8, 128), dtype=torch.int32, device=dev)
         return (lambda: probes.add_one(x),
                 lambda: probes.LAUNCHES["add_one"], "p1_add_one")
+    if name == "p2big":
+        a = torch.ones((4096, 4096), dtype=torch.int8, device=dev)
+        return (lambda: probes.int8_mm(a, a),
+                lambda: probes.LAUNCHES["int8_mm"], "p2_int8_mm")
     k1_count = lambda: fused_eval.LAUNCHES
     if name == "k1":
         pred = torch.from_numpy(rng.integers(0, 256, (288, 35, 4, 4)).astype(
@@ -178,7 +186,9 @@ MATRIX = [
                          "50", "--graph", "--pad-ms", "5"]),
 ] + [(f"ab_pad10_{i}", ["--kernel", "k1", "--sessions", "800", "--calls",
                         "50", "--graph", "--pad-ms", "10", "--alternate"])
-     for i in range(3)] + [(f"one_per_process_{i}", ["--kernel", "k1", "--sessions", "1",
+     for i in range(3)] + [
+    ("busy", ["--kernel", "p2big", "--sessions", "200", "--calls", "20"])
+] + [(f"one_per_process_{i}", ["--kernel", "k1", "--sessions", "1",
                                "--calls", "50"]) for i in range(4)]
 
 
@@ -241,7 +251,8 @@ def main(argv=None):
                     help="with --matrix: comma-separated configurations")
     ap.add_argument("--out", default=None)
     ap.add_argument("--timeout", type=float, default=600)
-    ap.add_argument("--kernel", default="k1", choices=["k1", "p1", "front"])
+    ap.add_argument("--kernel", default="k1",
+                    choices=["k1", "p1", "p2big", "front"])
     ap.add_argument("--sessions", type=int, default=40)
     ap.add_argument("--calls", type=int, default=50)
     ap.add_argument("--graph", action="store_true")

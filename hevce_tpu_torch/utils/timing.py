@@ -19,9 +19,11 @@ from hevce_tpu_torch.utils.tracing import keep_cupti
 PROFILE_TRIES = 3
 # host idle at the start of every profiler session, before its work: the
 # card's kernel timestamps can run ahead of the host clock that opens
-# Kineto's window (by up to 5.6 ms on an H100, tools/profiler_sessions), and
-# Kineto drops a kernel stamped before the window opened ("Out-of-range"),
-# so a session lost its first launches
+# Kineto's window (by 0.4-5.7 ms in 7-15% of sessions on an H100, by more
+# than 10 ms in some; tools/profiler_sessions), and Kineto drops a kernel
+# stamped before the window opened ("Out-of-range"): a session lost its
+# first launches. card_kernels pads a session it runs again 10 and 100
+# times longer.
 PROFILE_PAD_S = 0.01
 # spin cycles per second of host enqueue in busy_events_ms: the H100's
 # 1.98 GHz boost clock, rounded up, so the spin outlasts the enqueue
@@ -30,6 +32,9 @@ SPIN_CYCLES_PER_S = 2e9
 # calls timed by busy_events_ms, since the process began
 LOST_SESSIONS = 0
 EVENT_TIMED = 0
+# why card_kernels ran sessions again, the first RERUNS_KEPT of them
+RERUNS = []
+RERUNS_KEPT = 20
 
 
 def cuda_ms(fn, reps):
@@ -101,25 +106,26 @@ def wrapper_launches() -> dict:
 def lost_launches(kernels, before, after) -> dict:
     """{kernel: launches its wrapper counted between `before` and `after`
     (wrapper_launches()) minus the launches a session's `kernels` [(name,
-    us, n)] record}, for the kernels where the two differ."""
+    us, n)] record}, for the kernels the session recorded fewer of. (More is
+    no loss: a tool may launch a kernel past its counting wrapper.)"""
     lost = {}
     for key in before:
         seen = sum(n for name, _, n in kernels if key in name)
-        if after[key] - before[key] != seen:
+        if after[key] - before[key] > seen:
             lost[key] = after[key] - before[key] - seen
     return lost
 
 
-def profiled(fn):
-    """one torch.profiler session of fn, begun with PROFILE_PAD_S of host
-    idle and ended by draining the card's queue: ([(name, card
-    microseconds, launches)] for every kernel the card ran, lost_launches()
-    of the session)."""
+def profiled(fn, pad_s=PROFILE_PAD_S):
+    """one torch.profiler session of fn, opened pad_s of host idle before
+    fn and ended by draining the card's queue: ([(name, card microseconds,
+    launches)] for every kernel the card ran, lost_launches() of the
+    session)."""
     keep_cupti()
     before = wrapper_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
+        time.sleep(pad_s)
         fn()
         torch.cuda.synchronize()
     kernels = [(name, us, n) for name, (us, n) in event_totals(prof).items()]
@@ -130,15 +136,20 @@ def card_kernels(fn, whole=lambda kernels: True):
     """run fn under torch.profiler: ([(name, card microseconds, launches)]
     for every kernel the card ran, complete). A session that recorded no
     kernel, recorded fewer launches of one of the port's kernels than its
-    wrapper made, or fails `whole` is run again (counted in LOST_SESSIONS);
-    after PROFILE_TRIES such sessions the last one comes back with complete
-    False. fn must be one that can run again."""
+    wrapper made, or fails `whole` is run again, its window opened 10 times
+    earlier each time (counted in LOST_SESSIONS, the first RERUNS_KEPT
+    reasons kept in RERUNS); after PROFILE_TRIES such sessions the last one
+    comes back with complete False. fn must be one that can run again."""
     global LOST_SESSIONS
-    for _ in range(PROFILE_TRIES):
-        kernels, lost = profiled(fn)
+    for attempt in range(PROFILE_TRIES):
+        kernels, lost = profiled(fn, PROFILE_PAD_S * 10 ** attempt)
         if kernels and not lost and whole(kernels):
             return kernels, True
         LOST_SESSIONS += 1
+        if len(RERUNS) < RERUNS_KEPT:
+            RERUNS.append({"kernels": {name[:48]: n for name, _, n
+                                       in kernels[:8]},
+                           "lost": lost, "whole": whole(kernels)})
     return kernels, False
 
 

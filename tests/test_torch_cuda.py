@@ -458,6 +458,20 @@ def test_a_profiled_window_holds_every_k1_launch_or_says_so(cuda_device,
                                   else {"k1_kernel": 20 - seen})
 
 
+@pytest.mark.cuda
+def test_profiler_sessions_tool_on_card(cuda_device):
+    r = subprocess.run(
+        [sys.executable, "-m", "hevce_tpu_torch.tools.profiler_sessions",
+         "--kernel", "k1", "--sessions", "3", "--calls", "5", "--graph"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rows = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    assert [row["session"] for row in rows] == [0, 1, 2]
+    assert all(row["expected"] == 5 and row["profiled"] + row["lost"] == 5
+               for row in rows)
+
+
 # run as a process of its own (test_card_times_after_a_graph_capture), so
 # that what the test process ran before cannot change it
 GRAPH_SESSIONS = """

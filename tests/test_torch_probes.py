@@ -8,6 +8,7 @@ import importlib.util
 import os
 import pathlib
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -372,19 +373,18 @@ def test_p3_rdoq_equals_the_three_candidate_search_for_every_coef(qpd6):
     assert (want != 0).any() and (np.abs(want) == 4095 >> qpd6).any()
 
 
-def _p3_warp_model(pred, blk, qpd6, tile=16):
+def _p3_warp_model(pred, blk, qpd6):
     """(q (rows, modes * 16), sse (rows, modes)) as the kernel's warps
-    compute them, int64, with `tile` candidate blocks a warp (16, or 8 with
-    the mma's rows 8-15 zero)."""
+    compute them, int64."""
     rows, w = pred.shape
     modes, n = w // 16, rows * w // 16
-    T = -(-n // tile)
+    T = -(-n // 16)
     mats = probes.p3_stage_matrices().astype(np.int64)
     mul, shr = probes.divisor_magic(modes)
     # candidate block of (tile, g, h) and whether it is live
-    b = (np.arange(T)[:, None, None] * tile + np.arange(8)[None, :, None]
+    b = (np.arange(T)[:, None, None] * 16 + np.arange(8)[None, :, None]
          + 8 * np.arange(2)[None, None, :])
-    live = (b < n) & (8 * np.arange(2)[None, None, :] < tile)
+    live = b < n
     bc = np.minimum(b, n - 1)
     brow = bc if modes == 1 else ((bc * mul) >> 32) >> shr
     coefs = 4 * np.arange(4)[:, None] + np.arange(4)[None, :]    # (t, j)
@@ -410,11 +410,11 @@ def _p3_warp_model(pred, blk, qpd6, tile=16):
     r = _rnd(_warp_stage(x, mats[4]), 12)
     d = bv - np.clip(r + pv, 0, 255)
     sse = _quad_sum((d * d).sum(-1))                          # (T, 8, 4, 2)
-    q = np.zeros((T * tile, 16), np.int64)
-    s = np.zeros(T * tile, np.int64)
+    q = np.zeros((T * 16, 16), np.int64)
+    s = np.zeros(T * 16, np.int64)
     for t in range(4):
-        for h in range(tile // 8):
-            rr = (np.arange(T)[:, None] * tile + np.arange(8) + 8 * h).ravel()
+        for h in range(2):
+            rr = (np.arange(T)[:, None] * 16 + np.arange(8) + 8 * h).ravel()
             q[rr, 4 * t:4 * t + 4] = qv[:, :, t, h].reshape(-1, 4)
             s[rr] = sse[:, :, t, h].ravel()      # each lane of the quad
     return q[:n].reshape(rows, w), s[:n].reshape(rows, modes)
@@ -429,9 +429,8 @@ def _p3_extreme_inputs(rng, rows, modes):
             blk.reshape(rows, 16).astype(np.uint8))
 
 
-@pytest.mark.parametrize("tile", [16, 8])
 @pytest.mark.parametrize("qpd6", range(5))
-def test_p3_warp_tile_model_equals_plain_and_jax(qpd6, tile):
+def test_p3_warp_tile_model_equals_plain_and_jax(qpd6):
     """The redesigned P3's register layout (one warp a tile, the stage
     matrices' rows in P3_ORDER, each stage reading the last one's
     accumulator as it stands, quad sums for the kill and the SSE) equals
@@ -444,7 +443,7 @@ def test_p3_warp_tile_model_equals_plain_and_jax(qpd6, tile):
              cuda_probe.p3_inputs(rng, rows=1),
              cuda_probe.p3_inputs(rng, rows=9, modes=4)]
     for pred, blk in cases:
-        q, sse = _p3_warp_model(pred, blk, qpd6, tile)
+        q, sse = _p3_warp_model(pred, blk, qpd6)
         q_want, sse_want = _jax_p3(pred, blk, qpd6)
         np.testing.assert_array_equal(q, q_want)
         np.testing.assert_array_equal(sse, sse_want)
@@ -595,7 +594,8 @@ def test_card_ms_runs_an_empty_profiler_session_again(monkeypatch, empty,
         return lost if len(sessions) <= empty else [("k", 400.0, 3),
                                                     ("c", 200.0, 3)]
 
-    monkeypatch.setattr(timing, "profiled", lambda fn: (kernels(fn), {}))
+    monkeypatch.setattr(timing, "profiled",
+                        lambda fn, pad_s: (kernels(fn), {}))
     monkeypatch.setattr(timing, "busy_events_ms", lambda fn, reps: 7.0)
     monkeypatch.setattr(timing, "LOST_SESSIONS", 0)
     monkeypatch.setattr(timing, "EVENT_TIMED", 0)
@@ -629,7 +629,10 @@ def _mock_profiler(monkeypatch, short_sessions):
     fewer than fused_eval.LAUNCHES counted; returns the list of sessions."""
     from hevce_tpu_torch.utils import tracing
 
-    sessions = []
+    class Sessions(list):
+        pass
+
+    sessions = Sessions()
 
     def totals(prof):
         sessions.append(prof)
@@ -638,6 +641,8 @@ def _mock_profiler(monkeypatch, short_sessions):
 
     for mod in (timing, tracing):
         monkeypatch.setattr(mod, "profile", _FakeProfile)
+    sessions.pads = []                   # the host idle each window took
+    monkeypatch.setattr(timing.time, "sleep", sessions.pads.append)
     monkeypatch.setattr(timing, "event_totals", totals)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(fused_eval, "LAUNCHES", 0)
@@ -653,11 +658,14 @@ def _front_step():
 def test_card_kernels_runs_a_trace_that_lost_launches_again(monkeypatch,
                                                             short):
     """A session whose K1 count is below the launches fused_eval's wrapper
-    counted is run again; after PROFILE_TRIES of them the last comes back
-    marked incomplete, never as if whole."""
+    counted is run again, its window padded 10 times wider each time; after
+    PROFILE_TRIES of them the last comes back marked incomplete, never as
+    if whole."""
     sessions = _mock_profiler(monkeypatch, short)
     kernels, complete = timing.card_kernels(_front_step)
     tries = min(short + 1, timing.PROFILE_TRIES)
+    assert sessions.pads == [timing.PROFILE_PAD_S * 10 ** k
+                             for k in range(tries)]
     assert len(sessions) == tries and fused_eval.LAUNCHES == 169 * tries
     assert complete == (short < timing.PROFILE_TRIES)
     assert timing.LOST_SESSIONS == tries - complete
@@ -665,14 +673,39 @@ def test_card_kernels_runs_a_trace_that_lost_launches_again(monkeypatch,
         not complete)
 
 
+def test_lost_launches_counts_only_launches_a_trace_missed():
+    before = dict.fromkeys(("k1_kernel", "k2_kernel"), 10)
+    after = {"k1_kernel": 179, "k2_kernel": 10}
+    kernels = [("k1_kernel4", 9.0, 160), ("k1_kernel_tc<8>", 1.0, 8),
+               ("k2_kernel", 2.0, 4)]      # K2 launched past its wrapper
+    assert timing.lost_launches(kernels, before, after) == {"k1_kernel": 1}
+    kernels[0] = ("k1_kernel4", 9.0, 161)
+    assert timing.lost_launches(kernels, before, after) == {}
+
+
 @pytest.mark.parametrize("short", [0, 1])
 def test_device_trace_flags_a_trace_that_lost_launches(monkeypatch,
                                                        tmp_path, short):
-    _mock_profiler(monkeypatch, short)
+    sessions = _mock_profiler(monkeypatch, short)
     with device_trace(tmp_path / "t") as prof:
         _front_step()
+    assert sessions.pads == [timing.PROFILE_PAD_S]
     assert prof.lost_launches == ({"k1_kernel": 1} if short else {})
     assert prof.exported == str(tmp_path / "t" / "trace.json")
+
+
+def test_profiler_session_stats_read_a_cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    from hevce_tpu_torch.tools import profiler_sessions
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t_in = time.time_ns()
+        torch.ones(8).add_(1)
+        t_out = time.time_ns()
+    st = profiler_sessions.session_stats(prof, "add", t_in, t_out, 1)
+    assert (st["expected"], st["profiled"], st["lost"]) == (1, 0, 1)
+    assert st["card_events"] == 0 and st["kernel_minus_launch_us"] is None
 
 
 def test_profile_front_on_one_32x32_image_cpu(tmp_path):
