@@ -95,6 +95,27 @@ Phases, each printed as one JSON line:
             decoding to its recon; encode_many_exact on 2 of the images must
             give native.encode_image_native's streams byte for byte
             (host_rdo seconds printed). K1 launch counts on each path.
+  spec      the Python spec encoder (models/encoder.encode_image) on the
+            card, as a user calls it: the golden 32x32 images at qpd6 0-4
+            and the golden 128x128 image at qpd6 2 (21 CTUs; cut in depth
+            only: its Python trial encodes cost seconds a CTU). Every
+            stream and recon must equal the golden one and the native
+            engine's; K1 must launch 169 times a CTU, every call one row of
+            35 candidates. K1 against its plain version (tolerance 0) at
+            this path's own calls, taken at the wrapper on the 32x32 images
+            (each (sz, 35) at qpd6 0-4). The wall per CTU, split into the
+            device eval (enqueue and copy back) and the host's trials, and
+            K1's card ms per CTU at one row beside its bound.
+  cli       python -m hevce_tpu_torch in a subprocess on a PGM written from
+            a golden image: the native and python engines must write the
+            golden stream and recon PGM, --fast a stream that decodes to
+            its recon.
+  mesh      the entry surface (hevce_tpu_torch/entry): entry() on the card
+            must equal the same step on the CPU; the device step at sz 8
+            and 32 split over the mesh (cuda:0, cuda:0) must equal the
+            unsplit step; dryrun_multichip(2) on the one card: the lockstep
+            mesh encode bit-exact against the native engine, the fast-mode
+            mesh encode decode-verified. K1 and K2 launch counts there.
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
@@ -109,6 +130,7 @@ Usage: python3 chip_smoke.py [--seed N]
 """
 import argparse
 import contextlib
+import io
 import json
 import os
 import pathlib
@@ -958,6 +980,201 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     emit(res)
 
 
+# -------------------------------------------------------------------- spec
+
+# the spec phase's golden images: the 32x32 ones at qpd6 0-4 and the
+# 128x128 one at qpd6 2 (16 CTUs)
+SPEC_IMAGES = (0, 1, 2, 3, 4, 22)
+
+
+def phase_spec(torch, dev, card):
+    """the Python spec encoder on the card against the golden streams and
+    the native engine; K1's launches, K1 against its plain version at the
+    path's own one-row calls, and its card ms per CTU."""
+    from hevce_tpu_torch.models import encoder
+    from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.runtime import native
+    from hevce_tpu_torch.utils.tracing import PhaseTimer
+
+    g = np.load(ROOT / "tests" / "data" / "golden_images.npz")
+    imgs = [(t, g[f"img_{t}"], int(g[f"qpd6_{t}"])) for t in SPEC_IMAGES]
+    ctus = sum(-(-im.shape[0] // 32) * -(-im.shape[1] // 32)
+               for _, im, _ in imgs)
+    timer = PhaseTimer()
+    fused_eval.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = [encoder.encode_image(im, q, device=dev, timer=timer)
+           for _, im, q in imgs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_eval.LAUNCHES
+    if launches != sum(K1_PER_CTU.values()) * ctus:
+        fail(f"K1 launched {launches} times on the spec path, expected "
+             f"{sum(K1_PER_CTU.values())} x {ctus} CTUs")
+    for (t, im, q), (s, r) in zip(imgs, out):
+        if s != bytes(g[f"stream_{t}"]) or not np.array_equal(
+                r, g[f"rcon_{t}"]):
+            fail(f"spec encode of golden image {t} differs from the golden "
+                 f"stream or recon")
+        s_ref, r_ref = native.encode_image_native(im, q)
+        if s != s_ref or not np.array_equal(r, r_ref):
+            fail(f"spec encode of golden image {t} differs from the native "
+                 f"engine's")
+
+    # K1 at the path's own calls, taken at the wrapper on the 32x32 images
+    calls, k1 = [], fused_eval.pipeline_sse
+
+    def taken(sz, q, pred, blk):
+        calls.append((sz, q, pred.clone(), blk.clone()))
+        return k1(sz, q, pred, blk)
+
+    fused_eval.pipeline_sse = taken
+    try:
+        for t, im, q in imgs:
+            if im.shape == (32, 32):
+                encoder.encode_image(im, q, device=dev)
+    finally:
+        fused_eval.pipeline_sse = k1
+    seen = {}
+    for sz, q, pred, blk in calls:
+        seen[(sz, q)] = seen.get((sz, q), 0) + 1
+        if tuple(pred.shape) != (35, sz, sz):
+            fail(f"spec K1 call at sz={sz}: pred {tuple(pred.shape)}, "
+                 f"expected one row (35, {sz}, {sz})")
+    want = {(sz, q): n for sz, n in K1_PER_CTU.items() for q in range(5)}
+    if seen != want:
+        fail(f"the spec path's K1 calls on the 32x32 images were {seen}, "
+             f"expected {want}")
+    max_err = max(k1_compare(torch, sz, q, pred, blk, "at the spec path's "
+                             "one-row calls") for sz, q, pred, blk in calls)
+    rows = {}
+    for sz, q, pred, blk in calls:
+        if q == QPD6 and sz not in rows:
+            rows[sz] = dict(k1_times(torch, sz, 35, 1, pred, blk),
+                            per_ctu=K1_PER_CTU[sz])
+    per_ctu = lambda key: sum(r["per_ctu"] * r[key] for r in rows.values())
+    res = {"launches": launches, "ms_per_ctu": per_ctu("ms"),
+           "bound_ms_per_ctu": per_ctu("bound_ms"),
+           "tc_bound_ms_per_ctu": per_ctu("tc_bound_ms"),
+           "call_ms_per_ctu": per_ctu("call_ms"),
+           "plain_ms_per_ctu": per_ctu("plain_ms"), "max_abs_err": max_err}
+    eval_s = timer.totals["device_eval"]
+    emit({"phase": "spec", "card": card,
+          "images": [[t, list(im.shape), q] for t, im, q in imgs],
+          "ctus": ctus, "k1_launches": launches,
+          "k1_launches_per_ctu": launches / ctus,
+          "wall_s": wall, "wall_s_per_ctu": wall / ctus,
+          "device_eval_s_per_ctu": eval_s / ctus,
+          "host_trials_s_per_ctu": (wall - eval_s) / ctus,
+          "device_evals": timer.counts["device_eval"],
+          "byte_identical": len(imgs), "k1_checked": len(calls),
+          "k1_max_abs_err": max_err,
+          "k1_card_ms_per_ctu": res["ms_per_ctu"],
+          "k1_call_ms_per_ctu": res["call_ms_per_ctu"],
+          "k1_bound_ms_per_ctu": res["bound_ms_per_ctu"],
+          "k1_tc_bound_ms_per_ctu": res["tc_bound_ms_per_ctu"],
+          "k1_plain_ms_per_ctu": res["plain_ms_per_ctu"],
+          "k1_shapes": sorted(rows.values(), key=lambda r: r["sz"]),
+          "cut": "21 CTUs of the golden set in depth; the node shape is the "
+                 "spec's own (one row of 35 candidates a call)"})
+    return res
+
+
+# --------------------------------------------------------------------- cli
+
+def phase_cli(card):
+    """python -m hevce_tpu_torch on a PGM of golden image 2, each engine."""
+    from hevce_tpu_torch.runtime import native
+    from hevce_tpu_torch.utils.imageio import read_pgm, write_pgm
+
+    g = np.load(ROOT / "tests" / "data" / "golden_images.npz")
+    work = ROOT / "build" / "chip_smoke_cli"
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "img.pgm"
+    write_pgm(src, g["img_2"])
+    runs = {}
+    for engine in ("native", "python", "fast"):
+        out, rcon = work / f"{engine}.h265", work / f"{engine}.pgm"
+        for f in (out, rcon):
+            f.unlink(missing_ok=True)
+        flag = "--fast" if engine == "fast" else f"--engine={engine}"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "hevce_tpu_torch", str(src),
+                            str(out), str(int(g["qpd6_2"])), str(rcon), flag],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli --engine={engine}: rc {r.returncode}: "
+                 f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+        stream, recon = out.read_bytes(), read_pgm(rcon)
+        if engine == "fast":
+            if not np.array_equal(native.decode_stream(stream), recon):
+                fail("cli --fast: the stream does not decode to its recon")
+        elif stream != bytes(g["stream_2"]) or not np.array_equal(
+                recon, g["rcon_2"]):
+            fail(f"cli --engine={engine}: stream or recon differs from the "
+                 f"golden one")
+        runs[engine] = {"wall_s": wall, "bytes": len(stream),
+                        "stdout": r.stdout.splitlines()}
+    emit({"phase": "cli", "card": card, "image": "golden 2 (32x32, qpd6 2)",
+          "runs": runs})
+
+
+# -------------------------------------------------------------------- mesh
+
+def phase_mesh(torch, dev, card):
+    """entry() on the card against the CPU, the device step split over
+    (dev, dev) against the unsplit step, and dryrun_multichip(2)."""
+    from hevce_tpu_torch import entry
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval
+    from hevce_tpu_torch.parallel import batch as pb
+
+    fn, args = entry.entry()
+    card_out = fn(*args)
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    for a, b in zip(card_out, cpu_fn(*cpu_args)):
+        if not (a.is_cuda and torch.equal(a.cpu(), b)):
+            fail("entry() on the card differs from the same step on the CPU")
+    mesh = (dev, dev)
+    for sz in (8, 32):
+        nodes = pb.random_node_batch(sz, 4, seed=sz)
+        got = pb.device_step_fn(sz, QPD6, mesh=mesh)(*nodes)
+        want = pb.device_step_fn(sz, QPD6)(*(torch.from_numpy(a).to(dev)
+                                             for a in nodes))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"the device step at sz={sz} over {mesh} differs from the "
+                 f"unsplit step")
+    fused_eval.LAUNCHES = 0
+    cabac_scan.LAUNCHES = 0
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        try:
+            entry.dryrun_multichip(2)
+        except AssertionError as e:
+            fail(f"dryrun_multichip(2): {e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+    # each of the two parts: the steps at sz 8 and 32 (5 launches each; the
+    # unsplit steps they are held to 5 more each), the lockstep's 6 CTUs
+    # with node rates on (21 node events of 5 K1 and one K2 launch, 64 PU
+    # events of one each) and the fast mode's 12 front steps
+    want_k1 = (2 * (2 * 5 + 6 * (21 * 5 + 64) + 12 * LAUNCHES_PER_FRONT)
+               + 2 * 5)
+    want_k2 = 2 * 6 * (21 + 64)
+    if (k1, k2) != (want_k1, want_k2):
+        fail(f"dryrun_multichip(2) launched K1 {k1} and K2 {k2} times, "
+             f"expected {want_k1} and {want_k2}")
+    emit({"phase": "mesh", "card": card, "mesh": [str(d) for d in mesh],
+          "entry_equal_cpu": True, "steps_equal_unsplit": [8, 32],
+          "dryrun_wall_s": wall, "dryrun": said.getvalue().splitlines(),
+          "k1_launches": k1,
+          "k2_launches": k2})
+    return k1, k2
+
+
 # ------------------------------------------------------------------ probes
 
 # the probes' arithmetic: P2's products and P3's transform stages run on the
@@ -1167,6 +1384,9 @@ def main():
     dense = timed("dense", phase_dense, torch, dev, card, imgs, shapes)
     timed("surface", phase_surface, torch, dev,
           np.random.default_rng([args.seed, 7]), card, imgs, streams, recons)
+    spec = timed("spec", phase_spec, torch, dev, card)
+    timed("cli", phase_cli, card)
+    mesh_k1, mesh_k2 = timed("mesh", phase_mesh, torch, dev, card)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
     emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS,
@@ -1187,7 +1407,8 @@ def main():
         "source": "hevce_tpu_torch/csrc/fused_eval.cu",
         "replaces": "hevce_tpu/ops/fused_eval.py:255",
         "launches": launches,
-        "max_abs_err": max(max_err, dense["max_abs_err"]),
+        "max_abs_err": max(max_err, dense["max_abs_err"],
+                           spec["max_abs_err"]),
         "ms": per_front("ms"), "plain_ms": per_front("plain_ms"),
         "bound_ms": t_bound,
         "bound_by": "operations" if by_ops * 2 > t_bound else "bytes",
@@ -1205,6 +1426,12 @@ def main():
         "dense_bound_ms_per_front": dense["bound_ms_per_front"],
         "dense_tc_bound_ms_per_front": dense["tc_bound_ms_per_front"],
         "dense_plain_ms_per_front": dense["plain_ms_per_front"],
+        "spec_launches": spec["launches"],
+        "spec_ms_per_ctu": spec["ms_per_ctu"],
+        "spec_bound_ms_per_ctu": spec["bound_ms_per_ctu"],
+        "spec_tc_bound_ms_per_ctu": spec["tc_bound_ms_per_ctu"],
+        "spec_plain_ms_per_ctu": spec["plain_ms_per_ctu"],
+        "mesh_launches": mesh_k1,
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
                  f"call_ms includes the host's enqueue; bound_ms with the "
@@ -1213,7 +1440,10 @@ def main():
                  f"of the lockstep path at {BATCH} rows, launches over its "
                  f"three runs; dense_* per front step of the dense path "
                  f"(rmd=None, {DENSE_LAUNCHES_PER_FRONT} launches at (sz, 35)"
-                 f" and {LANES} lanes), launches over its run"}, {
+                 f" and {LANES} lanes), launches over its run; spec_* per "
+                 f"CTU of the Python spec encoder (169 launches at one row "
+                 f"of 35), launches over its 21 CTUs; mesh_launches over "
+                 f"dryrun_multichip(2)"}, {
         "name": "cabac_scan", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/cabac_scan.cu",
         "replaces": "hevce_tpu/ops/cabac_pallas.py:190",
@@ -1226,13 +1456,15 @@ def main():
         "library_ms": None, "call_ms": per_ctu("call_ms"),
         "kernel_ms": per_ctu("kernel_ms"),
         "ns_per_op": {s["shape"]: s["ns_per_op"] for s in k2_shapes_},
+        "mesh_launches": mesh_k2,
         "basis": f"one CTU of the lockstep path with node_rates on at a "
                  f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
                  f"21 node launches at 1260 lanes), on op strings of "
                  f"synthetic blocks; ms the wrapper's card time (K2 and its "
                  f"stack of the scalars), kernel_ms K2's alone; ns_per_op "
                  f"per call over its longest lane; launches count the three "
-                 f"lockstep runs"}] + [
+                 f"lockstep runs, mesh_launches the mesh lockstep encode of "
+                 f"dryrun_multichip(2)"}] + [
         dict(r, route="cuda", source="hevce_tpu_torch/csrc/probes.cu",
              encode_launches=encode_probe_launches[r["name"]],
              basis="one call at the probe's shape; launches count the run "

@@ -5,9 +5,10 @@ reference coder uses them (reference src/HEVCe.c:697-785): the 64x4 LPS
 range table, the 128-entry next-state tables over packed context values
 v = 2*state + mps (generated from the 64-state TransIdxLPS table and the
 MPS increment rule), the named offsets of the flat 142-entry context vector
-and its QP-dependent initialisation. The arithmetic coder itself is not
-here: the rate simulation (ops/cabac_sim, ops/cabac_scan) counts bytes
-without emitting them.
+and its QP-dependent initialisation; and CabacEncoder, the arithmetic coder
+that emits bytes, which the Python spec encoder (models/encoder) drives.
+The rate simulation (ops/cabac_sim, ops/cabac_scan) counts the same
+coder's bytes without emitting them.
 """
 import numpy as np
 
@@ -55,6 +56,11 @@ LPS_TABLE = np.array([
     [10, 12, 14, 16], [9, 11, 13, 15], [9, 11, 12, 14], [8, 10, 12, 14],
     [8, 9, 11, 13], [7, 9, 11, 12], [7, 9, 10, 12], [7, 8, 10, 11],
     [6, 8, 9, 11], [6, 7, 9, 10], [6, 7, 8, 9], [2, 2, 2, 2]], np.int32)
+
+# single-shot renorm shift per (lps >> 3): 6 for lps < 8, else
+# 5 - floor(log2(lps >> 3))
+RENORM_TABLE = np.array(
+    [6] + [5 - (i.bit_length() - 1) for i in range(1, 32)], np.int32)
 
 # named offsets into the flat 142-entry context vector (the reference
 # ContextSet layout, src/HEVCe.c:745-759)
@@ -116,3 +122,130 @@ def init_context_state(init_val: int, qpd6: int) -> int:
 def new_context_set(qpd6: int) -> bytearray:
     """Fresh 142-entry packed context vector for a slice at the given qpd6."""
     return bytearray(init_context_state(int(v), qpd6) for v in CTX_INIT_VALUES)
+
+
+class CabacEncoder:
+    """HEVC binary arithmetic encoder with an exact bit-length oracle
+    (reference src/HEVCe.c:791-933): a 9-bit range and 32-bit low with
+    deferred carries through an outstanding-byte count, start-code
+    emulation prevention (0x03 insertion) in the byte sink, and bit_len(),
+    the fractional length every RD decision uses (CABAClen,
+    src/HEVCe.c:835-837).
+
+    copy() snapshots a coder for a speculative trial encode; the copy owns
+    its byte buffer, so trials forked from one original never share it."""
+
+    __slots__ = ("range", "low", "nbits", "outstanding", "bufbyte", "buf",
+                 "zrun")
+
+    def __init__(self):
+        self.range = 510
+        self.low = 0
+        self.nbits = 23
+        self.outstanding = 0     # buffered carry-propagation bytes
+        self.bufbyte = 0xFF
+        self.buf = bytearray()   # emitted bytes (emulation prevention in)
+        self.zrun = 0            # trailing 0x00 run, for 0x03 insertion
+
+    def copy(self) -> "CabacEncoder":
+        c = CabacEncoder.__new__(CabacEncoder)
+        c.range, c.low, c.nbits = self.range, self.low, self.nbits
+        c.outstanding, c.bufbyte = self.outstanding, self.bufbyte
+        c.buf = bytearray(self.buf)
+        c.zrun = self.zrun
+        return c
+
+    def _emit(self, byte: int) -> None:
+        """byte sink with emulation prevention (src/HEVCe.c:821-832)."""
+        byte &= 0xFF
+        if self.zrun >= 2 and byte <= 0x03:
+            self.buf.append(0x03)
+            self.zrun = 0
+        self.buf.append(byte)
+        self.zrun = self.zrun + 1 if byte == 0 else 0
+
+    def _refill(self) -> None:
+        """low-register refill and carry resolution (src/HEVCe.c:859-879)."""
+        if self.nbits >= 12:
+            return
+        lead = self.low >> (24 - self.nbits)
+        self.nbits += 8
+        self.low &= (0xFFFFFFFF >> self.nbits)
+        if lead == 0xFF:
+            self.outstanding += 1
+        elif self.outstanding > 0:
+            carry = lead >> 8
+            self._emit(self.bufbyte + carry)
+            self.bufbyte = lead & 0xFF
+            fill = (0xFF + carry) & 0xFF
+            for _ in range(self.outstanding - 1):
+                self._emit(fill)
+            self.outstanding = 1
+        else:
+            self.outstanding = 1
+            self.bufbyte = lead
+
+    def encode_bin(self, ctxs: bytearray, idx: int, binval: int) -> None:
+        """context-coded bin (src/HEVCe.c:914-933)."""
+        v = ctxs[idx]
+        lps = int(LPS_TABLE[v >> 1, (self.range >> 6) & 3])
+        self.range -= lps
+        if binval != (v & 1):
+            nbit = int(RENORM_TABLE[lps >> 3])
+            ctxs[idx] = NEXT_STATE_LPS[v]
+            self.low = (self.low + self.range) << nbit
+            self.range = lps << nbit
+            self.nbits -= nbit
+        else:
+            ctxs[idx] = NEXT_STATE_MPS[v]
+            if self.range < 256:
+                self.low <<= 1
+                self.range <<= 1
+                self.nbits -= 1
+        self._refill()
+
+    def encode_bypass(self, bins: int, length: int) -> None:
+        """bypass bins, MSB first, in chunks of 8 (src/HEVCe.c:899-911)."""
+        bins &= (1 << length) - 1
+        while length > 0:
+            cur = min(length, 8)
+            length -= cur
+            chunk = (bins >> length) & ((1 << cur) - 1)
+            self.low = (self.low << cur) + self.range * chunk
+            self.nbits -= cur
+            self._refill()
+
+    def encode_terminate(self, binval: int) -> None:
+        """end_of_slice / terminate bin (src/HEVCe.c:882-896)."""
+        self.range -= 2
+        if binval:
+            self.low = (self.low + self.range) << 7
+            self.range = 2 << 7
+            self.nbits -= 7
+        elif self.range < 256:
+            self.low <<= 1
+            self.range <<= 1
+            self.nbits -= 1
+        self._refill()
+
+    def bit_len(self) -> int:
+        """exact fractional length oracle (src/HEVCe.c:835-837)."""
+        return 8 * (len(self.buf) + self.outstanding) + 23 - self.nbits
+
+    def finish(self) -> None:
+        """flush (src/HEVCe.c:840-856)."""
+        if (self.low >> (32 - self.nbits)) > 0:
+            self._emit(self.bufbyte + 1)
+            self.low -= 1 << (32 - self.nbits)
+            fill = 0x00
+        else:
+            if self.outstanding > 0:
+                self._emit(self.bufbyte)
+            fill = 0xFF
+        for _ in range(max(self.outstanding - 1, 0)):
+            self._emit(fill)
+        self.outstanding = 0
+        tail = ((self.low >> 8) << self.nbits) & 0xFFFFFFFF
+        self._emit(tail >> 16)
+        self._emit(tail >> 8)
+        self._emit(tail)

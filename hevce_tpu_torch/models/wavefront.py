@@ -24,7 +24,9 @@ position-weighted checksum tail. fetch_qc=True ships the full records
 instead: [lay | pm | pm4 | qc8 1024] per CTU, an int16 sideband for the
 images whose levels escape int8, the device recon and their checksums.
 Decisions are integer math, so the CUDA and CPU runs give byte-identical
-records (and equal the JAX package's).
+records (and equal the JAX package's). With a mesh (parallel/batch) a
+batch's slice runs once per mesh device on its part of the images: fronts
+have no dependency across images, so the streams do not change.
 """
 import collections
 import functools
@@ -38,6 +40,7 @@ from hevce_tpu_torch.ops import constants as Cst
 from hevce_tpu_torch.ops import intra, rdcost
 from hevce_tpu_torch.ops import quant as qops
 from hevce_tpu_torch.ops import satd as satd_ops
+from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
 from hevce_tpu_torch.utils.tracing import PhaseTimer
@@ -835,15 +838,23 @@ class _HostCopy:
 
 
 def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
-                    device=None, want_recon=True, fetch_qc=False):
+                    device=None, want_recon=True, fetch_qc=False, mesh=None):
     """Upload + run the slice for one same-shaped batch. Launches are
     queued on the current stream and the copies to the host start without
     blocking. Returns (out, meta) for _finish_batch (or _fetch_lean).
     prices: optional (ctx, sig) per-image arrays (B,) of <<15 bin prices;
     None = the constant knobs. fetch_qc=False: out is the lean records'
     _HostCopy; True: (buf, side, plane) _HostCopys with qc16 left on the
-    device between side and plane (plane None unless want_recon)."""
-    dev = _device.resolve(device)
+    device between side and plane (plane None unless want_recon).
+    mesh: a sequence of devices (parallel/batch.make_mesh) that the batch
+    is split over, one run_slice per device, the outputs gathered on the
+    first; B must be a multiple of its size, and device is not used."""
+    if mesh is None:
+        dev = _device.resolve(device)
+    else:
+        mesh = pb.make_mesh(mesh)
+        pb.check_split(len(images), mesh)
+        dev = mesh[0]
     images = [native._clip_dims(im) for im in images]
     shape = images[0].shape
     if any(im.shape != shape for im in images):
@@ -858,12 +869,13 @@ def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
     else:
         cv = np.asarray(prices[0], np.int32).reshape(B)
         sv = np.asarray(prices[1], np.int32).reshape(B)
-    O = torch.from_numpy(_orig_tiles_raster(images, yp, xp)).to(dev)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (_orig_tiles_raster(images, yp, xp), cv, sv)]
+    run = functools.partial(run_slice, qpd6=qpd6, rmd=_resolve_rmd(rmd),
+                            fetch_qc=fetch_qc,
+                            want_recon=want_recon and fetch_qc)
     with torch.no_grad():
-        out = run_slice(O, torch.from_numpy(cv).to(dev),
-                        torch.from_numpy(sv).to(dev), qpd6,
-                        _resolve_rmd(rmd), fetch_qc=fetch_qc,
-                        want_recon=want_recon and fetch_qc)
+        out = pb.sharded(run, mesh, *args)
     if fetch_qc:
         buf, side, qc16, plane = out
         out = (_HostCopy(buf), _HostCopy(side), qc16,
@@ -958,7 +970,7 @@ def _finish_batch(out, meta, want_recon, timer, fetch_qc=False):
 # ---------------------------------------------------------------- drivers
 
 def encode_batch_fast(images, qpd6: int, timer=None, want_recon=True,
-                      rmd=_RMD_ENV, device=None, fetch_qc=False):
+                      rmd=_RMD_ENV, device=None, fetch_qc=False, mesh=None):
     """Wavefront fast mode: encode B same-shaped uint8 grayscale images.
 
     Returns (streams, recons). Streams are standard-compliant HEVC (exact
@@ -967,11 +979,14 @@ def encode_batch_fast(images, qpd6: int, timer=None, want_recon=True,
     what a decoder reconstructs; want_recon=False returns None recons.
     fetch_qc=True ships the full records (quant levels, device recon)
     instead of the lean ones; streams and recons are the same. Constant bin
-    prices (no adaptation). device=None runs on the card."""
+    prices (no adaptation). device=None runs on the card. mesh: a sequence
+    of devices the batch is split over (_dispatch_batch); the batch must be
+    a multiple of its size, and the streams are the unsplit ones."""
     timer = timer if timer is not None else PhaseTimer()
     with timer.phase("dispatch"):
         out, meta = _dispatch_batch(images, qpd6, rmd, device=device,
-                                    want_recon=want_recon, fetch_qc=fetch_qc)
+                                    want_recon=want_recon, fetch_qc=fetch_qc,
+                                    mesh=mesh)
     return _finish_batch(out, meta, want_recon, timer, fetch_qc)
 
 
@@ -1061,7 +1076,7 @@ AHEAD = 4                             # batches in flight ahead of the drain
 
 def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
                      want_recon=True, rmd=_RMD_ENV, device=None,
-                     fetch_qc=False):
+                     fetch_qc=False, mesh=None):
     """Throughput-oriented fast-mode encode of a mixed-shape image list.
 
     Groups images by shape into batches of `batch` and keeps up to AHEAD
@@ -1078,10 +1093,15 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
     'adapt_flagged' and 'adapt_kept' images. fetch_qc=True ships the
     full records (encode_batch_fast). Returns (streams, recons) in input
     order; recons are None when want_recon=False. device=None runs on the
-    card."""
+    card. mesh: a sequence of devices each batch is split over
+    (_dispatch_batch); a batch is padded up to a multiple of its size by
+    repeating its last image, whose copies' outputs are dropped, and
+    HEVCE_ADAPT=post stays single-pass."""
     timer = timer if timer is not None else PhaseTimer()
+    if mesh is not None:
+        mesh = pb.make_mesh(mesh)
     mode = adapt_mode()
-    adapt = mode == "post" and not fetch_qc
+    adapt = mode == "post" and not fetch_qc and mesh is None
     streams = [None] * len(images)
     recons = [None] * len(images)
     inflight = collections.deque()     # (out, meta, idx, flags or None)
@@ -1091,7 +1111,7 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
             out, meta = _dispatch_batch([images[i] for i in idx], qpd6, rmd,
                                         prices=prices, device=device,
                                         want_recon=want_recon,
-                                        fetch_qc=fetch_qc)
+                                        fetch_qc=fetch_qc, mesh=mesh)
         return out, meta
 
     def flag_and_redispatch(idx, st):
@@ -1141,10 +1161,12 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
     for idx in _shape_batches(images, batch):
         if len(inflight) >= AHEAD:
             drain_one()
+        padded = idx if mesh is None else idx + [idx[-1]] * (-len(idx)
+                                                             % len(mesh))
         pr = None
         if mode == "pre":
-            pr = _predict_prices([images[i] for i in idx], qpd6)
-        inflight.append(dispatch(idx, pr) + (idx, None))
+            pr = _predict_prices([images[i] for i in padded], qpd6)
+        inflight.append(dispatch(padded, pr) + (idx, None))
     while inflight:
         drain_one()
     return streams, recons

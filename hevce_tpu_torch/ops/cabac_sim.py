@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from hevce_tpu_torch.bitstream import cabac as cb
+from hevce_tpu_torch.bitstream import syntax
 
 NUM_CTX = cb.NUM_CTX
 KIND_CTX, KIND_BYPASS, KIND_TERM, KIND_NOP = 0, 1, 2, 3
@@ -84,10 +85,9 @@ def _tables(device: torch.device):
     4*state + q), the LPS and MPS next-state tables and the single-shot
     renorm shift per (lps >> 3). (Kernel K2 takes its own packed form,
     ops/cabac_scan.kernel_tables.)"""
-    renorm = [6] + [5 - (i.bit_length() - 1) for i in range(1, 32)]
     return tuple(torch.as_tensor(np.asarray(p, np.int32), device=device)
                  for p in (cb.LPS_TABLE.reshape(-1), cb.NEXT_STATE_LPS,
-                           cb.NEXT_STATE_MPS, renorm))
+                           cb.NEXT_STATE_MPS, cb.RENORM_TABLE))
 
 
 def _emit_run(nbytes, zrun, byte, k):
@@ -239,3 +239,12 @@ class OpRecorder:
 
     def encode_terminate(self, binval):
         self.ops.append(pack_op(KIND_TERM, 0, int(bool(binval))))
+
+
+def record_put_coef(sz, pmode, blk):
+    """Op string of a fresh-coder putCoef rate (the reference's step-4 PU
+    rate, src/HEVCe.c:1505-1519). The writer branches only on the data,
+    never on context values, so a dummy context vector serves."""
+    rec = OpRecorder()
+    syntax.put_coef(rec, bytearray(cb.NUM_CTX), sz, False, pmode, blk)
+    return rec.ops

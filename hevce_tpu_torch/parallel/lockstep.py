@@ -22,7 +22,12 @@ serves the other half. Each half pays a whole event's launches, and the
 path is bound by the host's enqueue of them, so on the card the split is
 slower (PERF.md); it is kept for parity with the JAX package's API.
 Bit-exact either way.
+
+With a mesh (parallel/batch) every node and PU step splits its batch over
+the mesh's devices, one equal part each, and gathers the results on the
+first; the arbitration stays per image, so the streams do not change.
 """
+import functools
 import ctypes
 import os
 import sys
@@ -34,6 +39,7 @@ from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import cabac_scan
 from hevce_tpu_torch.ops import cabac_sim as sim
 from hevce_tpu_torch.ops import coef_ops as co
+from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
 from hevce_tpu_torch.utils.tracing import PhaseTimer
@@ -163,11 +169,13 @@ class _Run:
     state), with the per-event work split into next / dispatch / complete
     so a caller can keep two instances in flight (pipelined halves)."""
 
-    def __init__(self, lib, images, qpd6, node_rates, device, verify, timer):
+    def __init__(self, lib, images, qpd6, node_rates, device, verify, timer,
+                 mesh=None):
         self.lib = lib
         self.qpd6 = qpd6
         self.node_rates = node_rates
         self.dev = device
+        self.mesh = mesh
         self.verify = verify
         self.timer = timer
         self.B = B = len(images)
@@ -235,8 +243,9 @@ class _Run:
         if kind == KIND_NODE:
             with self.timer.phase(f"device_math_node{sz}"):
                 if self.node_rates:
-                    self._out = _node_step(
-                        sz, self.qpd6, top, left, flags, orig,
+                    self._out = pb.sharded(
+                        functools.partial(_node_step, sz, self.qpd6),
+                        self.mesh, top, left, flags, orig,
                         self._up(self.req_state), self._up(self.req_ctxs),
                         self._up(self.req_meta))
                 else:
@@ -247,7 +256,8 @@ class _Run:
                     self._out = (q1, r1, s1, q4, r4, s4, None, None)
         elif kind == KIND_PU:
             with self.timer.phase("device_math_pu"):
-                self._out = _pu_step(self.qpd6, top, left, flags, orig)
+                self._out = pb.sharded(functools.partial(_pu_step, self.qpd6),
+                                       self.mesh, top, left, flags, orig)
         else:   # KIND_NODE_FETCH / KIND_PU_FETCH
             sel = self.req_fetch.copy()
             qs, rs = self.pend
@@ -353,13 +363,20 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     finish (device phases time the host's enqueue; the wait for the card
     lands in writeback and winner_fetch). HEVCE_TRACE=1 prints the
     breakdown to stderr on return.
-    mesh: not ported (raises NotImplementedError).
+    mesh: a sequence of devices (parallel/batch.make_mesh); every node and
+    PU step splits its batch over them, and the results gather on the
+    first. A mesh turns node_rates on, and the batch must be a multiple of
+    its size; device is then not used.
     device: None runs on the card (and raises without CUDA); "cpu" runs
     every kernel's plain version.
     """
     if mesh is not None:
-        raise NotImplementedError("encode_batch(mesh=...) is not ported yet")
-    dev = _device.resolve(device)
+        mesh = pb.make_mesh(mesh)
+        pb.check_split(len(images), mesh)
+        node_rates = True   # the mesh splits the whole device data path
+        dev = mesh[0]
+    else:
+        dev = _device.resolve(device)
     if node_rates is None:
         node_rates = os.environ.get("HEVCE_NODE_RATES") == "1"
     if pipeline is None:
@@ -372,8 +389,9 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
         raise ValueError("batch must share dims")
     B = len(images)
     parts = [images]
-    if pipeline and B >= 2:
-        parts = [images[:B // 2], images[B // 2:]]
+    cut = B // 2 if mesh is None else B // 2 // len(mesh) * len(mesh)
+    if pipeline and 0 < cut < B:    # halves the mesh divides
+        parts = [images[:cut], images[cut:]]
 
     lib = native._load()
     runs = []
@@ -382,7 +400,7 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
         with torch.no_grad():
             for part in parts:
                 runs.append(_Run(lib, part, qpd6, node_rates, dev, verify,
-                                 timer))
+                                 timer, mesh))
             live = runs
             for r in live:
                 if r.next() != KIND_DONE:

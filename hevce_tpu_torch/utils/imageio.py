@@ -1,8 +1,7 @@
-"""PGM (P5) image I/O, numpy only.
-
-Equivalent capability to the reference CLI's loadPGMfile/writePGMfile
-(reference src/HEVCeMain.c:9-90); a copy of hevce_tpu/utils/imageio.py's
-read_pgm / write_pgm.
+"""Image I/O: PGM (P5) read / write in numpy, as the reference CLI's
+loadPGMfile / writePGMfile (reference src/HEVCeMain.c:9-90), and any
+PIL-readable image as 8-bit grayscale (PIL is imported only for input that
+is not PGM).
 """
 import pathlib
 import re
@@ -42,3 +41,19 @@ def write_pgm(path, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"P5\n%d %d\n255\n" % (w, h))
         f.write(img.tobytes())
+
+
+def to_grayscale(path) -> np.ndarray:
+    """Load an image as (h, w) uint8 grayscale: a PGM with read_pgm, any
+    other format through PIL's convert('L') (the reference's
+    ConvertToPGM.py:16-20)."""
+    p = str(path)
+    if p.lower().endswith(".pgm"):
+        return read_pgm(p)
+    from PIL import Image
+    return np.asarray(Image.open(p).convert("L"), np.uint8)
+
+
+def convert_to_pgm(src, dst) -> None:
+    """Any-format -> grayscale PGM converter (ConvertToPGM.py)."""
+    write_pgm(dst, to_grayscale(src))

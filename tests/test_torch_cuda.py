@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from hevce_tpu_torch.models import encoder
 from hevce_tpu_torch.models import wavefront as wf
 from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, coef_ops, fused_eval,
                                  probes)
+from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.tools import (bench_fused, bench_k2, cuda_probe,
@@ -268,6 +270,32 @@ def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
         s_ref, r_ref = native.encode_image_native(im, 2)
         assert s == s_ref
         assert np.array_equal(r, r_ref)
+
+
+# -------------------------------------- spec encoder, device step, mesh
+
+@pytest.mark.cuda
+def test_spec_encoder_on_card_equals_golden(cuda_device):
+    g = np.load(ROOT / "tests" / "data" / "golden_images.npz")
+    k1 = fused_eval.LAUNCHES
+    stream, rcon = encoder.encode_image(g["img_2"], int(g["qpd6_2"]),
+                                        device=cuda_device)
+    assert fused_eval.LAUNCHES - k1 == 169            # one CTU
+    assert stream == bytes(g["stream_2"])
+    assert np.array_equal(rcon, g["rcon_2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz,n", [(8, 4), (32, 2)])
+def test_device_step_on_card_equals_cpu(cuda_device, sz, n):
+    args = pb.random_node_batch(sz, n, seed=sz)
+    cpu = pb.device_step_fn(sz, 2)(*args)
+    card = pb.device_step_fn(sz, 2)(*(torch.from_numpy(a).to(cuda_device)
+                                      for a in args))
+    mesh = pb.device_step_fn(sz, 2, mesh=(cuda_device, cuda_device))(*args)
+    for a, b, c in zip(card, mesh, cpu):
+        assert a.is_cuda and b.is_cuda
+        assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)
 
 
 # ------------------------------------------------------------ probes P1-P3

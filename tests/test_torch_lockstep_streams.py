@@ -126,8 +126,10 @@ def test_step_failure_propagates_without_hanging(golden, monkeypatch):
 
 def test_encode_batch_needs_cuda_unless_cpu(monkeypatch):
     img = np.zeros((32, 32), np.uint8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):          # a mesh is a sequence of devices
         lockstep.encode_batch([img], 2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        lockstep.encode_batch([img], 2, mesh=("cpu", "cpu"))
     with pytest.raises(ValueError, match="share dims"):
         lockstep.encode_batch([img, img[:, :16]], 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
