@@ -51,9 +51,13 @@ Phases, each printed as one JSON line:
   slice     the main path, as a user calls it: encode_many_fast on 18
             synthetic 768x512 and 6 synthetic 512x768 images (qpd6=2,
             batch=18, RMD (12, 4), 'pre' prices, lean records, host pack).
-            K1 must launch exactly 169 times per front step, and every
-            stream must decode, through the independent native decoder, to
-            the recon returned with it.
+            Each batch runs through its shape's slice runner, whose front
+            step is a CUDA graph replayed per front. A first run builds the
+            two shapes' runners (an eager warm-up step and a capture each);
+            the second is timed. K1 must launch exactly 169 times per front
+            step (and per warm-up step), and every stream must decode,
+            through the independent native decoder, to the recon returned
+            with it.
   lockstep  the bit-exact lockstep engine, as a user calls it:
             encode_batch on 18 synthetic 64x96 images (6 CTUs each,
             qpd6=2), with node_rates off, on, and off with pipeline=True
@@ -85,6 +89,19 @@ Phases, each printed as one JSON line:
             taken at the wrapper. Wall s, ms per front step, K1's card ms
             per front step (from the kernels phase's (sz, 35) rows) and its
             bound.
+  graph     the slice runner's CUDA graphs against the eager front step:
+            on the identity phase's images at qpd6 0, 2 and 4, graph
+            replays (_dispatch_batch) and the eager run_slice on the card
+            must give byte-identical lean records (both shapes), full
+            records with the recon, and dense records. Then the capture
+            cost of the main path's three runners (the RMD keys of both
+            shapes, the dense key; eager warm-up step, capture with
+            instantiate, graph nodes, pool memory) and, at the main path's
+            288 lanes, per front step: the replay ms (CUDA events over a
+            whole slice of replays), the eager step's wall ms on the same
+            buffers, and a profiled pair of replayed steps (card busy share,
+            complete, lost sessions); RMD and dense, the peak memory and
+            the slice phase's MP/s.
   surface   the rest of the fast mode's surface, on the card: fetch_qc=True
             (full records: quant levels, int16 escape sideband, device
             recon) on the slice phase's 18 768x512 images must give the
@@ -116,6 +133,9 @@ Phases, each printed as one JSON line:
             unsplit step; dryrun_multichip(2) on the one card: the lockstep
             mesh encode bit-exact against the native engine, the fast-mode
             mesh encode decode-verified. K1 and K2 launch counts there.
+
+On the fast paths every K1 count adds one step for each slice runner the
+run builds (its eager warm-up step on the card; runners_built()).
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
@@ -179,6 +199,14 @@ K1_PER_CTU = {4: 128, 8: 32, 16: 8, 32: 1}
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def runners_built():
+    """slice runners built so far in this process: each ran one eager
+    warm-up step on the card before its capture."""
+    from hevce_tpu_torch.models import wavefront as wf
+
+    return wf._slice_runner_cache.cache_info().currsize
 
 
 def fail(msg):
@@ -470,28 +498,36 @@ def phase_slice(torch, dev, rng, card):
         if not any(x >= wf.ADAPT_GRAD_TRIGGER for x in g):
             fail(f"no image of shape {s} crosses the gradient trigger")
 
-    # warm-up on small images: CUDA context, cuBLAS handles, K1's constants
-    warm = [im[:64, :96] for im in imgs[:2]]
-    wf.encode_many_fast(warm, QPD6, batch=2, device=dev)
-    torch.cuda.synchronize()
-
-    timer = PhaseTimer()
-    fused_eval.LAUNCHES = 0
-    t0 = time.perf_counter()
-    streams, recons = wf.encode_many_fast(imgs, QPD6, batch=BATCH,
-                                          timer=timer, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_eval.LAUNCHES
-
     fronts = 0
     for s in shapes:
         R, Cc = -(-s[0] // 32), -(-s[1] // 32)
         n = sum(1 for im in imgs if im.shape == s)
         fronts += -(-n // BATCH) * (2 * (R - 1) + Cc)
-    if launches != LAUNCHES_PER_FRONT * fronts:
-        fail(f"K1 launched {launches} times on the main path, expected "
-             f"{LAUNCHES_PER_FRONT} x {fronts} fronts")
+
+    # the first run builds the two shapes' slice runners (an eager warm-up
+    # step and a graph capture each); the second replays them, timed
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        timer = PhaseTimer()
+        fused_eval.LAUNCHES = 0
+        built0 = runners_built()
+        t0 = time.perf_counter()
+        streams, recons = wf.encode_many_fast(imgs, QPD6, batch=BATCH,
+                                              timer=timer, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, built = fused_eval.LAUNCHES, runners_built() - built0
+        if launches != LAUNCHES_PER_FRONT * (fronts + built):
+            fail(f"K1 launched {launches} times on the main path, expected "
+                 f"{LAUNCHES_PER_FRONT} x ({fronts} fronts + {built} "
+                 f"warm-up steps)")
+        runs.append((wall, launches, built, streams))
+    if runs[0][2] != len(shapes) or runs[1][2]:
+        fail(f"the runs built {runs[0][2]} and {runs[1][2]} slice runners, "
+             f"expected {len(shapes)} and 0")
+    if runs[0][3] != streams:
+        fail("the second run's streams differ from the first's")
     bpp, quality = [], []
     for i, (s, r) in enumerate(zip(streams, recons)):
         if not np.array_equal(native.decode_stream(s), r):
@@ -505,13 +541,17 @@ def phase_slice(torch, dev, rng, card):
           "qpd6": QPD6, "batch": BATCH, "fronts": fronts,
           "k1_launches": launches, "wall_s": wall,
           "mp_per_s": pixels / wall / 1e6,
+          "first_run": {"wall_s": runs[0][0], "k1_launches": runs[0][1],
+                        "runners_built": runs[0][2],
+                        "mp_per_s": pixels / runs[0][0] / 1e6},
           "phases_s": dict(timer.totals),
           "grad_energy": {str(s): g for s, g in grads.items()},
           "psnr_db_mean": float(np.mean(quality)),
           "psnr_db_min": float(np.min(quality)),
           "bpp_mean": float(np.mean(bpp)), "decoded": len(streams),
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return launches, imgs, streams, recons
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "peak_note": "both runs, the captures included"})
+    return launches, imgs, streams, recons, pixels / wall / 1e6
 
 
 # ---------------------------------------------------------------- lockstep
@@ -718,14 +758,9 @@ def records_identical(dev, rmd):
     from hevce_tpu_torch.models import wavefront as wf
     from hevce_tpu_torch.utils.tracing import PhaseTimer
 
-    rng = np.random.default_rng(5)
-    noise = rng.integers(0, 256, (64, 96)).astype(np.uint8)
-    yy, xx = np.mgrid[0:64, 0:96]
-    smooth = ((yy * 2 + xx) % 256).astype(np.uint8)
-    odd = rng.integers(0, 256, (50, 70)).astype(np.uint8)
     compared = 0
     for qpd6 in (0, 2, 4):
-        for group in ([noise, smooth], [odd]):
+        for group in identity_groups():
             prices = wf._predict_prices(group, qpd6)
             bufs = []
             for d in (dev, "cpu"):
@@ -799,21 +834,28 @@ def phase_dense(torch, dev, card, imgs, shapes):
              f"{len(land)}")
     R, C = -(-land[0].shape[0] // 32), -(-land[0].shape[1] // 32)
     fronts = 2 * (R - 1) + C
-    wf.encode_batch_fast([im[:64, :96] for im in land[:2]], QPD6, rmd=None,
-                         device=dev)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = PhaseTimer()
-    fused_eval.LAUNCHES = 0
-    t0 = time.perf_counter()
-    streams, recons = wf.encode_batch_fast(land, QPD6, timer=timer, rmd=None,
-                                           device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_eval.LAUNCHES
-    if launches != DENSE_LAUNCHES_PER_FRONT * fronts:
-        fail(f"K1 launched {launches} times on the dense path, expected "
-             f"{DENSE_LAUNCHES_PER_FRONT} x {fronts} fronts")
+    # the first run builds the batch's dense runner (an eager warm-up step
+    # and a graph capture); the second replays it, timed
+    runs = []
+    for _ in range(2):
+        timer = PhaseTimer()
+        fused_eval.LAUNCHES = 0
+        built0 = runners_built()
+        t0 = time.perf_counter()
+        streams, recons = wf.encode_batch_fast(land, QPD6, timer=timer,
+                                               rmd=None, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, built = fused_eval.LAUNCHES, runners_built() - built0
+        if launches != DENSE_LAUNCHES_PER_FRONT * (fronts + built):
+            fail(f"K1 launched {launches} times on the dense path, expected "
+                 f"{DENSE_LAUNCHES_PER_FRONT} x ({fronts} fronts + {built} "
+                 f"warm-up steps)")
+        runs.append((wall, launches, built))
+    if (runs[0][2], runs[1][2]) != (1, 0):
+        fail(f"the dense runs built {runs[0][2]} and {runs[1][2]} runners, "
+             f"expected 1 and 0")
     peak = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.perf_counter()
     quality, bpp = [], []
@@ -853,6 +895,8 @@ def phase_dense(torch, dev, card, imgs, shapes):
           "lanes": LANES,
           "fronts": fronts, "k1_launches": launches,
           "k1_launches_per_front": launches / fronts, "wall_s": wall,
+          "first_run": {"wall_s": runs[0][0], "k1_launches": runs[0][1],
+                        "runners_built": runs[0][2]},
           "wall_ms_per_front": 1e3 * wall / fronts,
           "mp_per_s": sum(im.size for im in land) / wall / 1e6,
           "phases_s": dict(timer.totals),
@@ -868,6 +912,198 @@ def phase_dense(torch, dev, card, imgs, shapes):
           "parts_s": {"decode": decode_s, "identity": identity_s,
                       "k1_check": k1_check_s}})
     return out
+
+
+# ------------------------------------------------------------------- graph
+
+def identity_groups():
+    """the identity phase's images: a 64x96 pair (noise, a ramp) and one
+    50x70 noise image."""
+    rng = np.random.default_rng(5)
+    noise = rng.integers(0, 256, (64, 96)).astype(np.uint8)
+    yy, xx = np.mgrid[0:64, 0:96]
+    smooth = ((yy * 2 + xx) % 256).astype(np.uint8)
+    odd = rng.integers(0, 256, (50, 70)).astype(np.uint8)
+    return [noise, smooth], [odd]
+
+
+def out_bytes(out):
+    """a slice's outputs (a tensor, a _HostCopy, or a tuple of them and
+    None) as bytes, read on the host."""
+    if not isinstance(out, tuple):
+        out = (out,)
+    return [None if o is None else
+            (o.cpu().numpy() if hasattr(o, "cpu") else o.numpy()).tobytes()
+            for o in out]
+
+
+def graph_vs_eager(torch, dev):
+    """graph replays (_dispatch_batch) against the eager run_slice on the
+    card, byte for byte: lean records on both identity groups, full records
+    with the recon and dense records on the pair, at qpd6 0, 2 and 4 with
+    the predicted prices. Returns how many slices were compared."""
+    from hevce_tpu_torch.models import wavefront as wf
+
+    pair, odd = identity_groups()
+    compared = 0
+    for qpd6 in (0, 2, 4):
+        for group, rmd, full in ((pair, (12, 4), False), (odd, (12, 4), False),
+                                 (pair, (12, 4), True), (pair, None, False)):
+            prices = wf._predict_prices(group, qpd6)
+            out, _ = wf._dispatch_batch(group, qpd6, rmd, prices=prices,
+                                        device=dev, want_recon=full,
+                                        fetch_qc=full)
+            args = [torch.from_numpy(a).to(dev)
+                    for a in wf._slice_inputs(group, qpd6, prices)[1]]
+            with torch.no_grad():
+                eager = wf.run_slice(*args, qpd6, rmd, fetch_qc=full,
+                                     want_recon=full)
+            if out_bytes(out) != out_bytes(eager):
+                fail(f"graph replays differ from the eager step at qpd6="
+                     f"{qpd6}, shape {group[0].shape}, rmd={rmd}, "
+                     f"fetch_qc={full}")
+            compared += 1
+    return compared
+
+
+def graph_nodes(graph):
+    """the nodes of a captured CUDA graph (the slice runner keeps its
+    cudaGraph_t: CUDAGraph(keep_graph=True)), from libcuda's
+    cuGraphGetNodes."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc:
+        fail(f"cuGraphGetNodes: CUresult {rc}")
+    return n.value
+
+
+def replayed_steps(torch, runner, per_step):
+    """at one runner (its buffers loaded): ms per front step of a whole
+    slice of replays (CUDA events, the host's wall and its enqueue), the
+    host's time of one replay call with the card idle, the eager step's
+    wall ms at fronts 30 and 31 on the same buffers, and a profiled pair of
+    replayed steps (fronts 30, 31): card busy share, complete, lost
+    sessions. K1 must launch per_step times a replayed step."""
+    from hevce_tpu_torch.ops import fused_eval
+    from hevce_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    n0 = fused_eval.LAUNCHES
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+    t0 = time.perf_counter()
+    e0.record()
+    for d in range(runner.D):
+        runner.front(d)
+    e1.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if fused_eval.LAUNCHES - n0 != per_step * runner.D:
+        fail(f"K1 counted {fused_eval.LAUNCHES - n0} launches over "
+             f"{runner.D} replayed steps, expected {per_step} a step")
+    # one replay's host call with the card idle: the launch's own cost
+    launch = []
+    for d in (30, 31):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.front(d)
+        launch.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+    eager = []
+    for d in (30, 31):
+        runner.d.fill_(d)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            runner.step()
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t)
+    wall = []
+
+    def two_replays():
+        t = time.perf_counter()
+        for d in (30, 31):
+            runner.front(d)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+
+    lost0 = timing.LOST_SESSIONS
+    ks, complete = timing.card_kernels(two_replays)
+    busy_us = sum(us for _, us, _ in ks)
+    k1 = sum(n for k, _, n in ks if "k1_kernel" in k)
+    return {"fronts": runner.D,
+            "replay_ms_per_step": e0.elapsed_time(e1) / runner.D,
+            "replay_wall_ms_per_step": 1e3 * wall_s / runner.D,
+            "replay_enqueue_ms_per_step": 1e3 * enqueue_s / runner.D,
+            "idle_launch_ms": 1e3 * sum(launch) / len(launch),
+            "eager_wall_ms_per_step": 1e3 * sum(eager) / len(eager),
+            "profile": {"steps": 2, "wall_ms_per_step": 1e3 * wall[-1] / 2,
+                        "card_busy_ms_per_step": busy_us / 1e3 / 2,
+                        "card_busy_share": busy_us / 1e6 / wall[-1],
+                        "kernels_per_step": sum(n for _, _, n in ks) / 2,
+                        "k1_launches_per_step": k1 / 2,
+                        "complete": complete,
+                        "lost_sessions": timing.LOST_SESSIONS - lost0}}
+
+
+def phase_graph(torch, dev, card, imgs, slice_mp_s):
+    """the slice runner's graphs: graph against eager on the card (byte for
+    byte), the main path's runners' capture cost, and per front step at
+    288 lanes the replay against the eager step, RMD and dense."""
+    from hevce_tpu_torch.models import wavefront as wf
+    from hevce_tpu_torch.utils import device as _device
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    compared = graph_vs_eager(torch, dev)
+    compare_s = time.perf_counter() - t0
+    dev = _device.normal(dev)
+    keys = {}
+    for s in sorted({im.shape for im in imgs}):
+        group = [im for im in imgs if im.shape == s][:BATCH]
+        meta, arrays = wf._slice_inputs(group, QPD6,
+                                        wf._predict_prices(group, QPD6))
+        R, Cc = meta[6], meta[7]
+        for rmd in ((12, 4), None) if s == imgs[0].shape else ((12, 4),):
+            runner = wf._slice_runner_cache(QPD6, R, Cc, len(group), rmd,
+                                            False, False, dev)
+            keys[(s, rmd)] = (runner, arrays)
+    rows, steps = [], {}
+    for (s, rmd), (runner, arrays) in keys.items():
+        if runner.graph is None:
+            fail(f"the runner of {s}, rmd={rmd} holds no graph")
+        rows.append({"shape": list(s), "B": runner.B, "R": runner.R,
+                     "Cc": runner.Cc, "rmd": rmd,
+                     "k1_per_step": runner.k1_per_step,
+                     "nodes": graph_nodes(runner.graph), **runner.stats,
+                     "pool_gib": runner.stats["pool_bytes"] / 2**30})
+        if s == imgs[0].shape:
+            runner.load(*(torch.from_numpy(a).to(dev) for a in arrays))
+            steps["rmd" if rmd else "dense"] = replayed_steps(
+                torch, runner, runner.k1_per_step)
+    if [r["k1_per_step"] for r in rows if r["rmd"] is None] != [
+            DENSE_LAUNCHES_PER_FRONT] or {r["k1_per_step"] for r in rows
+                                          if r["rmd"]} != {LAUNCHES_PER_FRONT}:
+        fail(f"captured K1 launches per step: {rows}")
+    emit({"phase": "graph", "card": card, "compared": compared,
+          "byte_identical": True, "compare_s": compare_s, "keys": rows,
+          "lanes": LANES, "steps": steps,
+          "runners_built": runners_built(),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+          "slice_mp_per_s": slice_mp_s,
+          "basis": "warmup_s: a runner's eager warm-up step; capture_s "
+                   "the capture of one front step; instantiate_s its "
+                   "instantiation; nodes the graph's; pool_gib the memory "
+                   "the capture reserved; replay_ms_per_step CUDA "
+                   "events over a whole slice of replays at 288 lanes "
+                   "(replay_enqueue_ms_per_step the host's calls, "
+                   "idle_launch_ms one call with the card idle); "
+                   "eager_wall_ms_per_step the same step run eagerly on "
+                   "the same buffers; peak_mem_gib over this phase"})
 
 
 # ----------------------------------------------------------------- surface
@@ -886,15 +1122,17 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
 
     # full records: the slice phase's streams and (host-replayed) recons
     fused_eval.LAUNCHES = 0
+    built0 = runners_built()
     t0 = time.perf_counter()
     s_full, r_full = wf.encode_many_fast([imgs[i] for i in land], QPD6,
                                          batch=BATCH, device=dev,
                                          fetch_qc=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = fused_eval.LAUNCHES
-    if k1 != LAUNCHES_PER_FRONT * fronts(imgs[land[0]]):
-        fail(f"K1 launched {k1} times with fetch_qc=True")
+    k1, built = fused_eval.LAUNCHES, runners_built() - built0
+    if k1 != LAUNCHES_PER_FRONT * (fronts(imgs[land[0]]) + built):
+        fail(f"K1 launched {k1} times with fetch_qc=True ({built} runners "
+             f"built)")
     for j, i in enumerate(land):
         if s_full[j] != streams[i]:
             fail(f"fetch_qc=True stream {i} differs from the lean path's")
@@ -910,7 +1148,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     if s_esc != s_lean or not np.array_equal(r_esc[0], r_lean[0]):
         fail("the escaped image's full-record stream differs from the lean")
     res["fetch_qc"] = {"images": len(land), "wall_s": wall,
-                       "k1_launches": k1,
+                       "k1_launches": k1, "runners_built": built,
                        "byte_identical": len(land), "escape_taken": True}
 
     # HEVCE_ADAPT=post: a two-pass encode whose corrections must decode,
@@ -921,6 +1159,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     try:
         timer = PhaseTimer()
         fused_eval.LAUNCHES = 0
+        built0 = runners_built()
         t0 = time.perf_counter()
         s_post, r_post = wf.encode_many_fast(post, QPD6, batch=BATCH,
                                              timer=timer, device=dev)
@@ -934,17 +1173,18 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     flagged, kept = timer.counts["adapt_flagged"], timer.counts["adapt_kept"]
     if not flagged:
         fail("HEVCE_ADAPT=post flagged no image")
-    k1 = fused_eval.LAUNCHES
-    if k1 != 2 * LAUNCHES_PER_FRONT * fronts(post[0]):
+    k1, built = fused_eval.LAUNCHES, runners_built() - built0
+    if k1 != LAUNCHES_PER_FRONT * (2 * fronts(post[0]) + built):
         fail(f"K1 launched {k1} times under HEVCE_ADAPT=post, expected a "
-             f"primary and a corrective pass of {fronts(post[0])} fronts")
+             f"primary and a corrective pass of {fronts(post[0])} fronts "
+             f"and {built} warm-up steps")
     for i, (s, r) in enumerate(zip(s_post, r_post)):
         if not np.array_equal(native.decode_stream(s), r):
             fail(f"HEVCE_ADAPT=post stream {i} does not decode to its recon")
     res["post"] = {"images": len(post), "shape": list(post[0].shape),
                    "flagged": flagged, "kept": kept,
                    "dispatches": timer.counts["dispatch"], "wall_s": wall,
-                   "k1_launches": k1, "decoded": len(s_post),
+                   "k1_launches": k1, "runners_built": built, "decoded": len(s_post),
                    "phases_s": dict(timer.totals),
                    "cut": f"18 of the 24 images (the 6 768x512 ones are a "
                           f"second batch), each cut to {POST_SHAPE[0]}x"
@@ -955,11 +1195,13 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     two = [imgs[i][:EXACT_SHAPE[0], :EXACT_SHAPE[1]] for i in land[:2]]
     timer = PhaseTimer()
     fused_eval.LAUNCHES = 0
+    built0 = runners_built()
     t0 = time.perf_counter()
     s_ex, r_ex = wf.encode_many_exact(two, QPD6, timer=timer, batch=BATCH,
                                       device=dev)
     wall = time.perf_counter() - t0
-    if fused_eval.LAUNCHES != LAUNCHES_PER_FRONT * fronts(two[0]):
+    built = runners_built() - built0
+    if fused_eval.LAUNCHES != LAUNCHES_PER_FRONT * (fronts(two[0]) + built):
         fail(f"K1 launched {fused_eval.LAUNCHES} times for the hints")
     t0 = time.perf_counter()
     refs = [native.encode_image_native(im, QPD6) for im in two]
@@ -972,6 +1214,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
                     "host_rdo_s": timer.totals["host_rdo"],
                     "phases_s": dict(timer.totals),
                     "k1_launches": fused_eval.LAUNCHES,
+                    "runners_built": built,
                     "native_sequential_s": native_s,
                     "byte_identical": len(two), "shape": list(EXACT_SHAPE),
                     "cut": f"2 images cut to {EXACT_SHAPE[0]}x"
@@ -1147,6 +1390,7 @@ def phase_mesh(torch, dev, card):
                  f"unsplit step")
     fused_eval.LAUNCHES = 0
     cabac_scan.LAUNCHES = 0
+    built0 = runners_built()
     said = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(said):
@@ -1157,12 +1401,14 @@ def phase_mesh(torch, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+    built = runners_built() - built0
     # each of the two parts: the steps at sz 8 and 32 (5 launches each; the
     # unsplit steps they are held to 5 more each), the lockstep's 6 CTUs
     # with node rates on (21 node events of 5 K1 and one K2 launch, 64 PU
-    # events of one each) and the fast mode's 12 front steps
+    # events of one each) and the fast mode's 12 front steps; the parts
+    # share one slice runner, whose warm-up step runs once
     want_k1 = (2 * (2 * 5 + 6 * (21 * 5 + 64) + 12 * LAUNCHES_PER_FRONT)
-               + 2 * 5)
+               + 2 * 5 + built * LAUNCHES_PER_FRONT)
     want_k2 = 2 * 6 * (21 + 64)
     if (k1, k2) != (want_k1, want_k2):
         fail(f"dryrun_multichip(2) launched K1 {k1} and K2 {k2} times, "
@@ -1170,7 +1416,7 @@ def phase_mesh(torch, dev, card):
     emit({"phase": "mesh", "card": card, "mesh": [str(d) for d in mesh],
           "entry_equal_cpu": True, "steps_equal_unsplit": [8, 32],
           "dryrun_wall_s": wall, "dryrun": said.getvalue().splitlines(),
-          "k1_launches": k1,
+          "k1_launches": k1, "runners_built": built,
           "k2_launches": k2})
     return k1, k2
 
@@ -1375,8 +1621,8 @@ def main():
     k2_err, k2_shapes_ = timed("k2", phase_k2, torch, dev, rng)
     for k in probes.LAUNCHES:          # the encode paths never run a probe
         probes.LAUNCHES[k] = 0
-    launches, imgs, streams, recons = timed("slice", phase_slice, torch,
-                                            dev, rng, card)
+    launches, imgs, streams, recons, slice_mp_s = timed(
+        "slice", phase_slice, torch, dev, rng, card)
     lock_k1, lock_k2 = timed("lockstep", phase_lockstep, torch, dev, rng,
                              card)
     timed("profile", phase_profile, torch, dev, rng)
@@ -1384,6 +1630,7 @@ def main():
     dense = timed("dense", phase_dense, torch, dev, card, imgs, shapes)
     timed("surface", phase_surface, torch, dev,
           np.random.default_rng([args.seed, 7]), card, imgs, streams, recons)
+    timed("graph", phase_graph, torch, dev, card, imgs, slice_mp_s)
     spec = timed("spec", phase_spec, torch, dev, card)
     timed("cli", phase_cli, card)
     mesh_k1, mesh_k2 = timed("mesh", phase_mesh, torch, dev, card)

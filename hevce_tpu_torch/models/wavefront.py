@@ -18,6 +18,10 @@ their split. Nodes preselect K of the 35 modes by SATD (RMD, the default)
 and search the TU-split on the top T, or (rmd=None) search all 35 modes in
 both TU layouts.
 
+A slice runs through its shape's runner (_slice_runner_cache, the JAX
+package's one compiled program per slice): on CUDA the front step is
+captured once as a CUDA graph and replayed for every front.
+
 The device output of a slice is the lean record buffer: per CTU
 [lay 21 | pm 21 | pm4 64] int8 in raster order, plus a 4-byte int32
 position-weighted checksum tail. fetch_qc=True ships the full records
@@ -31,13 +35,14 @@ have no dependency across images, so the streams do not change.
 import collections
 import functools
 import os
+import time
 
 import numpy as np
 import torch
 
 from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as Cst
-from hevce_tpu_torch.ops import intra, rdcost
+from hevce_tpu_torch.ops import fused_eval, intra, rdcost
 from hevce_tpu_torch.ops import quant as qops
 from hevce_tpu_torch.ops import satd as satd_ops
 from hevce_tpu_torch.parallel import batch as pb
@@ -183,7 +188,7 @@ def _scan_consts(sz: int):
     return inv, cnt, byp, stm
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _scan_tensors(sz: int, device: torch.device):
     """device tensors derived from _scan_consts: inverse scan, the packed
     (bypass rate | ctx count << 20) per-position constant, the scan-order CG
@@ -704,16 +709,193 @@ def _wrap_i32(x):
     return _i32(((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31))
 
 
+@_device.cached_per_device
+def _dev_cksum_weights(n: int, device: torch.device):
+    """_cksum_weights(n) on `device`, uploaded once."""
+    return torch.as_tensor(_cksum_weights(n), device=device)
+
+
 def _dev_cksum(flat):
     """_host_cksum of a (B, n) integer tensor, on its device: (B,) int32."""
-    w = torch.as_tensor(_cksum_weights(flat.shape[-1]), device=flat.device)
+    w = _dev_cksum_weights(flat.shape[-1], flat.device)
     return _wrap_i32((_i32(flat) * w).sum(-1, dtype=torch.int64))
 
 
+class _SliceRunner:
+    """One slice shape's runner (hevce_tpu's _slice_runner_cache entry):
+    static device buffers and the front step that reads and writes them.
+
+    Buffers: the skewed original tiles Osk (B, R, D, 32, 32) u8, the carry
+    (W, the last three committed front columns, and PME, the pmode edge),
+    the per-lane bin prices, the front index d (a 0-dim int32 tensor) and
+    the per-front record columns lay / pm / pm4 (D, B, R, n) int8, plus
+    qc16 (D, B, R, 1024) int16 for full records and S (D, B, R, 32, 32) u8
+    for the recon. step() is one front_core call at front d: it reads its
+    original column from Osk by the tensor d, writes its record columns at
+    index d and shifts W and PME in place, so it takes no value from the
+    host. capture() records it once as a CUDA graph; front(d) then sets d
+    and replays it. A call loads a batch, runs the D fronts and returns
+    fresh tensors from tail(): nothing returned is a view of a buffer that
+    the next call overwrites. On the CPU the same step runs eagerly."""
+
+    def __init__(self, qpd6: int, R: int, Cc: int, B: int, rmd,
+                 fetch_qc: bool, want_recon: bool, device: torch.device):
+        self.qpd6, self.R, self.Cc, self.B, self.rmd = qpd6, R, Cc, B, rmd
+        self.fetch_qc, self.want_recon = fetch_qc, want_recon
+        self.device = device
+        self.D = D = 2 * (R - 1) + Cc
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.Osk = z((B, R, D, CTU, CTU), torch.uint8)
+        self.W = z((B, R, 3, CTU, CTU), torch.uint8)
+        self.PME = z((B, R, 8), torch.int32)
+        self.ctx_lane = z((B * R,), torch.int32)
+        self.sig_lane = z((B * R,), torch.int32)
+        self.d = z((), torch.int32)
+        self.cols = [z((D, B, R, 21), torch.int8), z((D, B, R, 21), torch.int8),
+                     z((D, B, R, 64), torch.int8)]       # lay, pm, pm4
+        if fetch_qc:
+            self.cols.append(z((D, B, R, 1024), torch.int16))
+        self.S = z((D, B, R, CTU, CTU), torch.uint8) if want_recon else None
+        self.graph = None
+        self.k1_per_step = 0
+        self.stats = {}
+
+    def load(self, O, cv, sv):
+        """a batch in: skew O (B, R, Cc, 32, 32) u8 into Osk (Osk[b, r,
+        2r + c] = O[b, r, c]; the rest stays zero), the per-image prices cv /
+        sv (B,) int32 into the lanes (lane b*R + r -> image b), and reset
+        the carry."""
+        for r in range(self.R):
+            self.Osk[:, r, 2 * r:2 * r + self.Cc].copy_(O[:, r])
+        self.ctx_lane.copy_(cv.repeat_interleave(self.R))
+        self.sig_lane.copy_(sv.repeat_interleave(self.R))
+        self.W.zero_()
+        self.PME.zero_()
+
+    def step(self):
+        """front step d, in place (the body of hevce_tpu's lax.scan)."""
+        di = self.d.to(torch.int64).reshape(1)
+        o_col = self.Osk.index_select(2, di).squeeze(2)
+        out = front_core(self.qpd6, self.R, self.rmd, self.W, self.PME,
+                         o_col, self.d, self.Cc, self.ctx_lane,
+                         self.sig_lane, want_qc=self.fetch_qc)
+        S_col, pme_col = out[0], out[4]
+        for buf, col in zip(self.cols, out[1:4] + out[5:]):
+            buf.index_copy_(0, di, col[None].to(buf.dtype))
+        if self.S is not None:
+            self.S.index_copy_(0, di, S_col[None])
+        self.W.copy_(torch.cat([self.W[:, :, 1:], S_col[:, :, None]], 2))
+        self.PME.copy_(pme_col)
+
+    def capture(self):
+        """CUDA: run the step once eagerly on a side stream (the warm-up:
+        cuBLAS's handle and workspace for the stream, the lazy uploads of
+        the constant tables, K1's library and modules), then capture it on
+        that stream into a graph with a private memory pool, and
+        instantiate it. A failed capture raises. K1's launch counter keeps
+        counting the kernels the card runs: the warm-up's count stays, the
+        capture's (no kernel runs) is taken back and added again at every
+        replay. stats: the seconds of the warm-up step, the capture and the
+        instantiation, and the bytes the capture reserved (its pool)."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            self.step()
+        stream.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()      # as the capture does first: the pool
+        mem0 = torch.cuda.memory_reserved(self.device)    # is what it adds
+        n0 = fused_eval.LAUNCHES
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.step()
+        finally:
+            self.k1_per_step = fused_eval.LAUNCHES - n0
+            fused_eval.LAUNCHES = n0
+        t2 = time.perf_counter()
+        graph.instantiate()
+        self.stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
+                      "instantiate_s": time.perf_counter() - t2,
+                      "pool_bytes": torch.cuda.memory_reserved(self.device)
+                      - mem0}
+        self.graph = graph
+
+    def front(self, d: int):
+        """front step d: a replay of the captured step, or (not captured)
+        the step itself."""
+        self.d.fill_(d)
+        if self.graph is None:
+            self.step()
+            return
+        self.graph.replay()
+        fused_eval.LAUNCHES += self.k1_per_step
+
+    def tail(self):
+        """unskew the record columns into raster order and checksum them:
+        the slice's outputs (run_slice's), in fresh tensors."""
+        B, R, Cc = self.B, self.R, self.Cc
+
+        def unskew(a):                # (D, B, R, ...) -> (B, R, Cc, ...)
+            return torch.stack([a[2 * r:2 * r + Cc, :, r] for r in range(R)],
+                               0).movedim(2, 0)
+
+        dec = [unskew(a) for a in self.cols[:3]]
+        if not self.fetch_qc:
+            rec = torch.cat(dec, -1).reshape(B, R * Cc * _REC_DEC)
+            ck = _dev_cksum(rec)                                    # (B,)
+            tail = torch.stack([(ck >> (8 * k)) & 0xFF for k in range(4)], -1)
+            tail = torch.where(tail > 127, tail - 256, tail).to(torch.int8)
+            return torch.cat([rec, tail], -1)
+
+        qc16_u = unskew(self.cols[3])                     # (B, R, Cc, 1024)
+        esc = ((qc16_u < -128) | (qc16_u > 127)).reshape(B, -1).any(-1)
+        buf = torch.cat(dec + [qc16_u.clamp(-128, 127).to(torch.int8)], -1)
+        plane = None
+        ckS = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        if self.want_recon:
+            plane = unskew(self.S).permute(0, 1, 3, 2, 4).reshape(
+                B, R * CTU, Cc * CTU)
+            ckS = _dev_cksum(plane.reshape(B, -1))
+        side = torch.stack([_dev_cksum(buf.reshape(B, -1)), _i32(esc), ckS,
+                            _dev_cksum(qc16_u.reshape(B, -1))], -1)
+        return buf, side, qc16_u, plane
+
+    def __call__(self, O, cv, sv):
+        """the slice of one batch: run_slice's outputs."""
+        self.load(O, cv, sv)
+        for d in range(self.D):
+            self.front(d)
+        return self.tail()
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_runner_cache(qpd6: int, R: int, Cc: int, B: int, rmd,
+                        fetch_qc: bool, want_recon: bool,
+                        device: torch.device) -> _SliceRunner:
+    """The runner of one slice shape (hevce_tpu's _slice_runner_cache, which
+    jits one program per (qpd6, R, Cc, want_recon, mesh, fetch_qc, rmd) and
+    retraces per batch size; here B and the device are in the key, and a
+    mesh runs one runner per part's device). On CUDA its front step is
+    captured as a CUDA graph here, once, and every front of every later
+    call is one replay of it; a failed capture raises, and nothing runs the
+    step eagerly on CUDA after it. On the CPU the step runs eagerly.
+    device must carry its index (utils/device.normal)."""
+    runner = _SliceRunner(qpd6, R, Cc, B, rmd, fetch_qc, want_recon, device)
+    if device.type == "cuda":
+        runner.capture()
+    return runner
+
+
 def run_slice(O, cv, sv, qpd6: int, rmd, fetch_qc=False, want_recon=False):
-    """Whole-slice runner: skew the raster input tiles into fronts, run
-    the D = 2(R-1) + Cc front steps with a 3-column recon window and the
-    pmode edge carry, unskew, and checksum the output.
+    """Whole-slice runner, eager: skew the raster input tiles into fronts,
+    run the D = 2(R-1) + Cc front steps with a 3-column recon window and the
+    pmode edge carry, unskew, and checksum the output. The plain version of
+    _slice_runner_cache's runner: a fresh runner, never captured, runs the
+    same skew, step and tail; for the tests and chip_smoke.py.
 
     O (B, R, Cc, 32, 32) uint8 tiles; cv / sv (B,) int32 per-image context /
     sig-zero bin prices (<<15); rmd (K, T) or None (dense).
@@ -723,57 +905,8 @@ def run_slice(O, cv, sv, qpd6: int, rmd, fetch_qc=False, want_recon=False):
     Cc*32) uint8 recon or None unless want_recon); esc flags an image with a
     level outside int8, whose exact levels the host then reads from qc16."""
     B, R, Cc = O.shape[:3]
-    dev = O.device
-    D = 2 * (R - 1) + Cc
-    ctx_lane = cv.repeat_interleave(R)  # lane b*R + r -> image b
-    sig_lane = sv.repeat_interleave(R)
-    # skew: Osk[b, r, d] = O[b, r, d - 2r] (zeros elsewhere)
-    Osk = torch.zeros((B, R, D, CTU, CTU), dtype=torch.uint8, device=dev)
-    for r in range(R):
-        Osk[:, r, 2 * r:2 * r + Cc] = O[:, r]
-
-    W = torch.zeros((B, R, 3, CTU, CTU), dtype=torch.uint8, device=dev)
-    PME = torch.zeros((B, R, 8), dtype=torch.int32, device=dev)
-    lay = torch.empty((D, B, R, 21), dtype=torch.int8, device=dev)
-    pm = torch.empty((D, B, R, 21), dtype=torch.int8, device=dev)
-    pm4 = torch.empty((D, B, R, 64), dtype=torch.int8, device=dev)
-    if fetch_qc:
-        qc16 = torch.empty((D, B, R, 1024), dtype=torch.int16, device=dev)
-    if want_recon:
-        S = torch.empty((D, B, R, CTU, CTU), dtype=torch.uint8, device=dev)
-    for d in range(D):
-        cols = front_core(qpd6, R, rmd, W, PME, Osk[:, :, d], d, Cc,
-                          ctx_lane, sig_lane, want_qc=fetch_qc)
-        S_col, lay[d], pm[d], pm4[d], PME = cols[:5]
-        if fetch_qc:
-            qc16[d] = cols[5]
-        if want_recon:
-            S[d] = S_col
-        W = torch.cat([W[:, :, 1:], S_col[:, :, None]], 2)
-
-    def unskew(a):                    # (D, B, R, ...) -> (B, R, Cc, ...)
-        return torch.stack([a[2 * r:2 * r + Cc, :, r] for r in range(R)],
-                           0).movedim(2, 0)
-
-    dec = [unskew(lay), unskew(pm), unskew(pm4)]
-    if not fetch_qc:
-        rec = torch.cat(dec, -1).reshape(B, R * Cc * _REC_DEC)
-        ck = _dev_cksum(rec)                                        # (B,)
-        tail = torch.stack([(ck >> (8 * k)) & 0xFF for k in range(4)], -1)
-        tail = torch.where(tail > 127, tail - 256, tail).to(torch.int8)
-        return torch.cat([rec, tail], -1)
-
-    qc16_u = unskew(qc16)                                 # (B, R, Cc, 1024)
-    esc = ((qc16_u < -128) | (qc16_u > 127)).reshape(B, -1).any(-1)
-    buf = torch.cat(dec + [qc16_u.clamp(-128, 127).to(torch.int8)], -1)
-    plane, ckS = None, torch.zeros((B,), dtype=torch.int32, device=dev)
-    if want_recon:
-        plane = unskew(S).permute(0, 1, 3, 2, 4).reshape(B, R * CTU,
-                                                         Cc * CTU)
-        ckS = _dev_cksum(plane.reshape(B, -1))
-    side = torch.stack([_dev_cksum(buf.reshape(B, -1)), _i32(esc), ckS,
-                        _dev_cksum(qc16_u.reshape(B, -1))], -1)
-    return buf, side, qc16_u, plane
+    return _SliceRunner(qpd6, R, Cc, B, rmd, fetch_qc, want_recon,
+                        O.device)(O, cv, sv)
 
 
 def _orig_tiles_raster(imgs, yp, xp):
@@ -839,15 +972,17 @@ class _HostCopy:
 
 def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
                     device=None, want_recon=True, fetch_qc=False, mesh=None):
-    """Upload + run the slice for one same-shaped batch. Launches are
-    queued on the current stream and the copies to the host start without
-    blocking. Returns (out, meta) for _finish_batch (or _fetch_lean).
+    """Upload + run the slice for one same-shaped batch through its shape's
+    runner (_slice_runner_cache: on CUDA one graph replay per front step).
+    Launches are queued on the current stream and the copies to the host
+    start without blocking. Returns (out, meta) for _finish_batch (or
+    _fetch_lean).
     prices: optional (ctx, sig) per-image arrays (B,) of <<15 bin prices;
     None = the constant knobs. fetch_qc=False: out is the lean records'
     _HostCopy; True: (buf, side, plane) _HostCopys with qc16 left on the
     device between side and plane (plane None unless want_recon).
     mesh: a sequence of devices (parallel/batch.make_mesh) that the batch
-    is split over, one run_slice per device, the outputs gathered on the
+    is split over, one runner call per device, the outputs gathered on the
     first; B must be a multiple of its size, and device is not used."""
     if mesh is None:
         dev = _device.resolve(device)
@@ -855,25 +990,15 @@ def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
         mesh = pb.make_mesh(mesh)
         pb.check_split(len(images), mesh)
         dev = mesh[0]
-    images = [native._clip_dims(im) for im in images]
-    shape = images[0].shape
-    if any(im.shape != shape for im in images):
-        raise ValueError("batch must share dims")
-    ysz, xsz = shape
-    yp, xp = -(-ysz // CTU) * CTU, -(-xsz // CTU) * CTU
-    R, Cc = yp // CTU, xp // CTU
-    B = len(images)
-    if prices is None:
-        cv = np.full(B, _ctx_default(qpd6), np.int32)
-        sv = np.full(B, SIG_ZERO, np.int32)
-    else:
-        cv = np.asarray(prices[0], np.int32).reshape(B)
-        sv = np.asarray(prices[1], np.int32).reshape(B)
-    args = [torch.from_numpy(a).to(dev)
-            for a in (_orig_tiles_raster(images, yp, xp), cv, sv)]
-    run = functools.partial(run_slice, qpd6=qpd6, rmd=_resolve_rmd(rmd),
-                            fetch_qc=fetch_qc,
-                            want_recon=want_recon and fetch_qc)
+    meta, arrays = _slice_inputs(images, qpd6, prices)
+    R, Cc = meta[6:]
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    rmd = _resolve_rmd(rmd)
+
+    def run(O, cv, sv):
+        return _slice_runner_cache(qpd6, R, Cc, O.shape[0], rmd, fetch_qc,
+                                   want_recon and fetch_qc,
+                                   _device.normal(O.device))(O, cv, sv)
     with torch.no_grad():
         out = pb.sharded(run, mesh, *args)
     if fetch_qc:
@@ -882,7 +1007,29 @@ def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
                None if plane is None else _HostCopy(plane))
     else:
         out = _HostCopy(out)
-    return out, (images, qpd6, ysz, xsz, yp, xp, R, Cc)
+    return out, meta
+
+
+def _slice_inputs(images, qpd6: int, prices=None):
+    """One same-shaped batch as a slice's host inputs: (meta, (O, cv, sv)),
+    meta = (images, qpd6, ysz, xsz, yp, xp, R, Cc) for _finish_batch, O the
+    (B, R, Cc, 32, 32) uint8 raster tiles and cv / sv the (B,) int32 bin
+    prices (prices, or the constant knobs when None)."""
+    images = [native._clip_dims(im) for im in images]
+    shape = images[0].shape
+    if any(im.shape != shape for im in images):
+        raise ValueError("batch must share dims")
+    ysz, xsz = shape
+    yp, xp = -(-ysz // CTU) * CTU, -(-xsz // CTU) * CTU
+    B = len(images)
+    if prices is None:
+        cv = np.full(B, _ctx_default(qpd6), np.int32)
+        sv = np.full(B, SIG_ZERO, np.int32)
+    else:
+        cv = np.asarray(prices[0], np.int32).reshape(B)
+        sv = np.asarray(prices[1], np.int32).reshape(B)
+    return ((images, qpd6, ysz, xsz, yp, xp, yp // CTU, xp // CTU),
+            (_orig_tiles_raster(images, yp, xp), cv, sv))
 
 
 def _fetch_lean(out, meta, timer):

@@ -12,7 +12,6 @@ op-by-op simulation of ops/cabac_sim. There is no fallback between the two:
 a CUDA tensor launches the kernel or raises.
 """
 import ctypes
-import functools
 import pathlib
 import threading
 
@@ -22,6 +21,7 @@ import torch
 from hevce_tpu_torch.bitstream import cabac as cb
 from hevce_tpu_torch.ops import cabac_sim as sim
 from hevce_tpu_torch.runtime import build as _build
+from hevce_tpu_torch.utils import device as _device
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "cabac_scan.cu"
 LIB_NAME = "libhevce_k2.so"
@@ -41,7 +41,7 @@ def scan_plain(state, ops, nops):
 
 # ------------------------------------------------------------------ kernel
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def kernel_tables(device: torch.device):
     """The int32 table tensor K2 takes: the 64x4 LPS range table packed as
     64 words, byte q of word s = LPS_TABLE[s, q] (every value fits a byte),

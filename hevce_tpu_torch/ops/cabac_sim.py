@@ -29,6 +29,7 @@ import torch
 
 from hevce_tpu_torch.bitstream import cabac as cb
 from hevce_tpu_torch.bitstream import syntax
+from hevce_tpu_torch.utils import device as _device
 
 NUM_CTX = cb.NUM_CTX
 KIND_CTX, KIND_BYPASS, KIND_TERM, KIND_NOP = 0, 1, 2, 3
@@ -79,7 +80,7 @@ def bit_len(state):
     return 8 * (state["nbytes"] + state["outstanding"]) + 23 - state["nbits"]
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _tables(device: torch.device):
     """int32 tensors on `device`: the LPS range table (flat, index
     4*state + q), the LPS and MPS next-state tables and the single-shot

@@ -24,6 +24,7 @@ from hevce_tpu_torch.bitstream import cabac as cb
 from hevce_tpu_torch.bitstream import syntax as syn
 from hevce_tpu_torch.ops import cabac_scan
 from hevce_tpu_torch.ops import cabac_sim as sim
+from hevce_tpu_torch.utils import device as _device
 
 # ops per escaped coefficient: <=3 prefix chunks (plen <= 24) + 2 suffix
 # chunks (slen <= 16), bypass runs of <= 8 bins each
@@ -80,7 +81,7 @@ def _tables(sz: int):
                 cg_right=cg_right, cg_below=cg_below)
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _device_tables(sz: int, device: torch.device):
     return {k: torch.as_tensor(v, device=device)
             for k, v in _tables(sz).items()}

@@ -21,13 +21,18 @@ import torch
 from hevce_tpu_torch.ops import constants as C
 from hevce_tpu_torch.ops import quant, rdcost, xform
 from hevce_tpu_torch.runtime import build as _build
+from hevce_tpu_torch.utils import device as _device
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "fused_eval.cu"
 HEADER = SOURCE.parent / "mma_s8.cuh"
 LIB_NAME = "libhevce_k1.so"
 SIZES = (4, 8, 16, 32)
 
-LAUNCHES = 0          # kernel launches made by pipeline_sse (CUDA route)
+# kernel launches made by pipeline_sse (CUDA route): the K1 kernels the card
+# runs. A CUDA graph's capture adds to it while no kernel runs, so the slice
+# runner (models/wavefront._SliceRunner) takes its capture back and adds the
+# captured count at every replay.
+LAUNCHES = 0
 
 _lock = threading.Lock()
 _lib = None
@@ -102,7 +107,7 @@ def stage_matrices(sz: int) -> np.ndarray:
 def _mats_device(device: torch.device, sz: int):
     """stage_matrices(sz) on `device`, uploaded once."""
     with _lock:
-        key = (device, sz)
+        key = (_device.normal(device), sz)
         if key not in _mats_cache:
             _mats_cache[key] = torch.from_numpy(stage_matrices(sz)).to(device)
         return _mats_cache[key]

@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from hevce_tpu_torch.utils import device as _device
+
 
 @functools.lru_cache(maxsize=None)
 def _hadamard_np(sz: int) -> np.ndarray:
@@ -23,7 +25,7 @@ def _hadamard_np(sz: int) -> np.ndarray:
     return h
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _hadamard(sz: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_hadamard_np(sz).astype(np.float64)).to(device)
 

@@ -7,10 +7,10 @@ prices. numpy_tables() builds the port's own numpy copies;
 tables_from_numpy() turns any such set (the port's, or the JAX package's)
 into the port's tensors, so a test can hold the two packages' tables equal.
 """
-import functools
-
 import numpy as np
 import torch
+
+from hevce_tpu_torch.utils import device as _device
 
 SIZES = (4, 8, 16, 32)
 
@@ -73,11 +73,7 @@ def tables_from_numpy(transform_mat, level_rate, rd_weight_dist,
     }
 
 
-@functools.lru_cache(maxsize=None)
-def _tables(device: torch.device) -> dict:
-    return tables_from_numpy(**numpy_tables(), device=device)
-
-
+@_device.cached_per_device
 def tables(device) -> dict:
     """The port's own tables on `device`, built once per device."""
-    return _tables(torch.device(device))
+    return tables_from_numpy(**numpy_tables(), device=device)

@@ -6,9 +6,11 @@ wavefront slice, the record checksum and the copy to the host) and traces
 --fronts of its front steps from the middle of the run under
 utils/tracing.device_trace: each front step launches tens of thousands of
 kernels, so a whole 768x512 slice (54 steps) would make a trace of millions
-of events. Writes the Chrome trace into --logdir and prints the top-K
-kernels by card time with their launch counts, the card's total, and the
-window's wall time (a warm-up on small crops of the images comes first).
+of events. On the card each front step is a replay of the slice runner's
+CUDA graph; a warm-up dispatch of the same batch captures it first, so the
+traced run replays it. Writes the Chrome trace into --logdir and prints the
+top-K kernels by card time with their launch counts, the card's total, and
+the window's wall time.
 On the card the first line also says whether the trace holds every launch
 of the port's kernels (utils/tracing.device_trace's lost_launches): a trace
 that lost launches is flagged, never reported as whole.
@@ -70,29 +72,29 @@ def report(agg, dev, fronts, wall, top_k, out=print):
 @contextlib.contextmanager
 def traced_fronts(logdir, first, count):
     """trace front steps first .. first + count - 1 of the runs inside the
-    block (wf.front_core wrapped). Yields a dict that receives "prof" and
-    "wall" (seconds from the window's start to its end, the queue drained)."""
-    core, calls, got = wf.front_core, [0], {}
+    block (the slice runner's front wrapped: a graph replay on the card).
+    Yields a dict that receives "prof" and "wall" (seconds from the window's
+    start to its end, the queue drained)."""
+    front, calls, got = wf._SliceRunner.front, [0], {}
     stack = contextlib.ExitStack()
 
-    def window_core(*args, **kw):
+    def window_front(runner, d):
         if calls[0] == first:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             got["prof"] = stack.enter_context(device_trace(logdir))
             got["t0"] = time.perf_counter()
-        out = core(*args, **kw)
+        front(runner, d)
         calls[0] += 1
         if calls[0] == first + count:
             stack.close()
             got["wall"] = time.perf_counter() - got["t0"]
-        return out
 
-    wf.front_core = window_core
+    wf._SliceRunner.front = window_front
     try:
         yield got
     finally:
-        wf.front_core = core
+        wf._SliceRunner.front = front
         stack.close()
 
 
@@ -120,9 +122,9 @@ def main(argv=None, out=print):
         rec, meta = wf._dispatch_batch(imgs, QPD6, device=dev)
         wf._fetch_lean(rec, meta, PhaseTimer())        # waits, checks
 
-    # warm-up on small crops: the CUDA context, cuBLAS, the kernels' libraries
-    wf._dispatch_batch([im[:64, :96] for im in imgs], QPD6,
-                       device=dev)[0].numpy()
+    # warm-up: the batch once, which builds its shape's runner (on the card
+    # the eager warm-up step and the graph capture)
+    batch()
     with traced_fronts(args.logdir, (D - fronts) // 2, fronts) as got:
         t0 = time.perf_counter()
         batch()

@@ -1,4 +1,6 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and caches per device."""
+import functools
+
 import torch
 
 # NVIDIA H100 SXM peaks (data sheet), for the bounds the tools state:
@@ -25,3 +27,26 @@ def resolve(device=None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def normal(device) -> torch.device:
+    """`device` as a torch.device with its index: "cuda" names the current
+    CUDA device, so "cuda" and "cuda:0" are one key of a cache (a tensor's
+    .device always carries its index)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def cached_per_device(fn):
+    """functools.lru_cache of fn(*args, device), keyed on normal(device):
+    a table built for a device once, whichever way the device is named.
+    The cache's cache_info / cache_clear are the wrapper's."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def call(*args):
+        return cached(*args[:-1], normal(args[-1]))
+    call.cache_info, call.cache_clear = cached.cache_info, cached.cache_clear
+    return call

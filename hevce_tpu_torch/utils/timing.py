@@ -94,7 +94,10 @@ def event_totals(prof, device_type=DeviceType.CUDA):
 def wrapper_launches() -> dict:
     """{a substring of a kernel's name: the launches its wrapper has
     counted} for the port's kernels (each wrapper counts a launch where it
-    makes one; a CUDA graph's replays are not counted)."""
+    makes one). K1's count is the kernels the card ran also under the slice
+    runner's CUDA graph (models/wavefront._SliceRunner): its capture is
+    taken back and every replay adds the captured launches. The probe
+    tool's P1 graph counts its capture, not its replays."""
     from hevce_tpu_torch.ops import cabac_scan, fused_eval, probes
 
     return {"k1_kernel": fused_eval.LAUNCHES, "k2_kernel": cabac_scan.LAUNCHES,

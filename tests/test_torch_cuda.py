@@ -81,6 +81,12 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
         fused_eval.pipeline_sse(8, 5, pred, blk)
 
 
+def _runners():
+    """slice runners built so far in this process (each on the card ran one
+    eager warm-up step, and each on the CPU none)."""
+    return wf._slice_runner_cache.cache_info().currsize
+
+
 @pytest.mark.cuda
 def test_card_records_equal_cpu_records(cuda_device):
     rng = np.random.default_rng(5)
@@ -88,12 +94,14 @@ def test_card_records_equal_cpu_records(cuda_device):
     yy, xx = np.mgrid[0:64, 0:96]
     smooth = ((yy * 2 + xx) % 256).astype(np.uint8)
     bufs = []
-    n0 = fused_eval.LAUNCHES
+    n0, built0 = fused_eval.LAUNCHES, _runners()
     for dev in (cuda_device, "cpu"):
         out, meta = wf._dispatch_batch([noise, smooth], 2, device=dev)
         wf._fetch_lean(out, meta, PhaseTimer())
         bufs.append(out.numpy().tobytes())
-    assert fused_eval.LAUNCHES - n0 == 169 * (2 * (2 - 1) + 3)
+        if dev is cuda_device:      # a runner built here ran one eager
+            warm = _runners() - built0          # warm-up step on the card
+    assert fused_eval.LAUNCHES - n0 == 169 * (2 * (2 - 1) + 3 + warm)
     assert bufs[0] == bufs[1]
 
 
@@ -105,12 +113,14 @@ def test_dense_card_records_equal_cpu_records(cuda_device):
     imgs = [rng.integers(0, 256, (64, 96)).astype(np.uint8),
             rng.integers(100, 140, (64, 96)).astype(np.uint8)]
     bufs = []
-    n0 = fused_eval.LAUNCHES
+    n0, built0 = fused_eval.LAUNCHES, _runners()
     for dev in (cuda_device, "cpu"):
         out, meta = wf._dispatch_batch(imgs, 2, None, device=dev)
         wf._fetch_lean(out, meta, PhaseTimer())
         bufs.append(out.numpy().tobytes())
-    assert fused_eval.LAUNCHES - n0 == 153 * (2 * (2 - 1) + 3)
+        if dev is cuda_device:      # a runner built here ran one eager
+            warm = _runners() - built0          # warm-up step on the card
+    assert fused_eval.LAUNCHES - n0 == 153 * (2 * (2 - 1) + 3 + warm)
     assert bufs[0] == bufs[1]
 
 
@@ -531,3 +541,157 @@ def test_card_times_after_a_graph_capture(cuda_device):
     r = subprocess.run([sys.executable, "-c", GRAPH_SESSIONS], cwd=ROOT,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+
+
+# --------------------------------------------------- the slice runner's graph
+
+def _identity_images():
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:64, 0:96]
+    return [rng.integers(0, 256, (64, 96)).astype(np.uint8),
+            ((yy * 2 + xx) % 256).astype(np.uint8)]
+
+
+def _as_bytes(out):
+    """a dispatch's output (a _HostCopy, or a tuple of them, qc16 and None)
+    as bytes."""
+    if isinstance(out, wf._HostCopy):
+        return [out.numpy().tobytes()]
+    return [None if o is None else
+            (o.cpu().numpy() if isinstance(o, torch.Tensor) else o.numpy())
+            .tobytes() for o in out]
+
+
+GRAPH_MODES = {  # (rmd, fetch_qc, want_recon, prices)
+    "lean": ((12, 4), False, False, None),
+    "dense": (None, False, False, None),
+    "full_recon": ((12, 4), True, True, None),
+    "post_prices": ((12, 4), False, False,
+                    (np.array([int(0.45 * wf.BIT), int(0.55 * wf.BIT)],
+                              np.int32), np.full(2, wf.SIG_ZERO, np.int32))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpd6", [0, 2, 4])
+def test_graph_records_equal_eager_and_cpu(cuda_device, qpd6):
+    """_dispatch_batch's graph replays give the records, sidebands and
+    recon planes of the eager run_slice on the card and of the CPU, byte
+    for byte, on every path."""
+    imgs = _identity_images()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for mode, (rmd, fetch_qc, want_recon, prices) in GRAPH_MODES.items():
+        graph = _as_bytes(wf._dispatch_batch(
+            imgs, qpd6, rmd, prices=prices, device=cuda_device,
+            want_recon=want_recon, fetch_qc=fetch_qc)[0])
+        runner = wf._slice_runner_cache(qpd6, 2, 3, 2, rmd, fetch_qc,
+                                        want_recon, dev)
+        assert runner.graph is not None and runner.k1_per_step == (
+            153 if rmd is None else 169)
+        cpu = _as_bytes(wf._dispatch_batch(
+            imgs, qpd6, rmd, prices=prices, device="cpu",
+            want_recon=want_recon, fetch_qc=fetch_qc)[0])
+        O, cv, sv = (torch.from_numpy(a).to(dev)
+                     for a in wf._slice_inputs(imgs, qpd6, prices)[1])
+        with torch.no_grad():
+            eager = wf.run_slice(O, cv, sv, qpd6, rmd, fetch_qc=fetch_qc,
+                                 want_recon=want_recon)
+        eager = _as_bytes(eager if fetch_qc else wf._HostCopy(eager))
+        assert graph == eager == cpu, (mode, qpd6)
+
+
+@pytest.mark.cuda
+def test_graph_counts_k1_launches_the_card_ran(cuda_device):
+    """K1's LAUNCHES: one eager warm-up step when a runner is built, none
+    for the capture, 169 per replayed step; a profiled call of the runner
+    holds them all."""
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(0, 256, (64, 64)).astype(np.uint8)
+            for _ in range(3)]                      # a key of its own
+    D = 2 * (2 - 1) + 2
+    n0, built0 = fused_eval.LAUNCHES, _runners()
+    first = wf._dispatch_batch(imgs, 2, device=cuda_device)[0].numpy()
+    assert _runners() == built0 + 1
+    assert fused_eval.LAUNCHES - n0 == 169 * (D + 1)
+    n0 = fused_eval.LAUNCHES
+    again = wf._dispatch_batch(imgs, 2, device=cuda_device)[0].numpy()
+    assert fused_eval.LAUNCHES - n0 == 169 * D
+    assert first.tobytes() == again.tobytes()
+    runner = wf._slice_runner_cache(2, 2, 2, 3, (12, 4), False, False,
+                                    torch.device("cuda",
+                                                 torch.cuda.current_device()))
+    O = torch.from_numpy(wf._orig_tiles_raster(imgs, 64, 64)).to(
+        runner.device)
+    cv, sv = (torch.full((3,), v, dtype=torch.int32, device=runner.device)
+              for v in (wf._ctx_default(2), wf.SIG_ZERO))
+    kernels, complete = timing.card_kernels(lambda: runner(O, cv, sv))
+    k1 = sum(n for k, _, n in kernels if "k1_kernel" in k)
+    assert complete and k1 == 169 * D
+
+
+@pytest.mark.cuda
+def test_graph_batches_in_flight(cuda_device):
+    """two batches of one shape dispatched back to back before either is
+    read (encode_many_fast keeps AHEAD in flight): each keeps its own
+    records, qc16 sideband and recon, equal to the CPU's."""
+    rng = np.random.default_rng(12)
+    a = [rng.integers(0, 256, (64, 96)).astype(np.uint8) for _ in range(2)]
+    b = [rng.integers(0, 256, (64, 96)).astype(np.uint8) for _ in range(2)]
+    for fetch_qc in (False, True):
+        outs = [wf._dispatch_batch(imgs, 0, device=cuda_device,
+                                   fetch_qc=fetch_qc)[0] for imgs in (a, b)]
+        got = [_as_bytes(o) for o in outs]
+        want = [_as_bytes(wf._dispatch_batch(imgs, 0, device="cpu",
+                                             fetch_qc=fetch_qc)[0])
+                for imgs in (a, b)]
+        assert got == want and got[0] != got[1]
+
+
+@pytest.mark.cuda
+def test_graph_over_a_mesh_on_one_card(cuda_device):
+    """a mesh (cuda:0, cuda:0): each part replays its device's runner; the
+    gathered records equal the unsplit CPU run's."""
+    rng = np.random.default_rng(13)
+    imgs = [rng.integers(0, 256, (64, 96)).astype(np.uint8) for _ in range(4)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = wf._dispatch_batch(imgs, 2, mesh=(dev, dev))[0].numpy()
+    want = wf._dispatch_batch(imgs, 2, device="cpu")[0].numpy()
+    assert got.tobytes() == want.tobytes()
+    assert wf._slice_runner_cache(2, 2, 3, 2, (12, 4), False, False,
+                                  dev).graph is not None
+
+
+# run as a process of its own (test_a_host_sync_in_the_step_fails_capture):
+# a failed capture must not leave the test process in a capture's state
+SYNC_IN_STEP = """
+import sys
+import numpy as np
+import torch
+from hevce_tpu_torch.models import wavefront as wf
+
+core = wf.front_core
+
+def synced(*args, **kw):
+    out = core(*args, **kw)
+    out[1].sum().item()                 # a host sync inside the step
+    return out
+
+wf.front_core = synced
+img = np.zeros((32, 32), np.uint8)
+try:
+    wf._dispatch_batch([img], 2, device="cuda")
+except RuntimeError as e:
+    print("capture raised:", str(e)[:200])
+    sys.exit(0 if wf._slice_runner_cache.cache_info().currsize == 0 else 4)
+sys.exit(3)
+"""
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_the_step_fails_capture(cuda_device):
+    """a step that waits for the card cannot be captured: the dispatch
+    raises (and caches no runner) instead of running the step eagerly."""
+    r = subprocess.run([sys.executable, "-c", SYNC_IN_STEP], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "capture raised" in r.stdout
