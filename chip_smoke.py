@@ -61,13 +61,20 @@ Phases, each printed as one JSON line:
   lockstep  the bit-exact lockstep engine, as a user calls it:
             encode_batch on 18 synthetic 64x96 images (6 CTUs each,
             qpd6=2), with node_rates off, on, and off with pipeline=True
-            (two halves of 9). Every stream must equal the native engine's
-            for the same image byte for byte and decode to its recon; K1
-            must launch 5 times per node event and once per PU event, K2
-            once per PU event (and once per node event with node_rates).
-            Then the host's time per event part (eval, op generation, K2)
-            at each size, and torch.profiler over one CTU per image (node
-            rates on): wall, card busy time, K1's and K2's part.
+            (two halves of 9). Every event replays its program (a CUDA
+            graph per node / PU / winner-gather shape and slot): a first
+            pass of one CTU an image through each run builds them (warm-up
+            step, capture, instantiate). Every stream must equal the native
+            engine's for the same image byte for byte and decode to its
+            recon; K1 must launch 5 times per node event and once per PU
+            event, K2 once per PU event (and once per node event with
+            node_rates), plus the warm-up steps of any program built in the
+            run. Per program key: warm-up, capture and instantiate seconds,
+            graph nodes, pool GiB. Per event kind at B=18: the replay on
+            the inputs of the program's last event against its plain step
+            on the same inputs (equal, tolerance 0), ms per call of each.
+            Then torch.profiler over one CTU per image (node rates on):
+            wall, card busy time, K1's and K2's part.
   profile   torch.profiler over two front steps at the main path's lanes:
             wall time, the card's busy time and K1's part of it; then the
             same for two dense (rmd=None) front steps. Each window's K1
@@ -119,10 +126,14 @@ Phases, each printed as one JSON line:
             stream and recon must equal the golden one and the native
             engine's; K1 must launch 169 times a CTU, every call one row of
             35 candidates. K1 against its plain version (tolerance 0) at
-            this path's own calls, taken at the wrapper on the 32x32 images
-            (each (sz, 35) at qpd6 0-4). The wall per CTU, split into the
-            device eval (enqueue and copy back) and the host's trials, and
-            K1's card ms per CTU at one row beside its bound.
+            this path's own calls (each eval's inputs taken on the 32x32
+            images and run through its plain function, K1's calls taken at
+            the wrapper; each (sz, 35) at qpd6 0-4). Every eval replays its
+            program (one per (fn, sz, qpd6)); K1's count adds each program's
+            warm-up step, and each program's capture cost is printed. The
+            wall per CTU, split into the device eval (load, replay, copy
+            back) and the host's trials, and K1's card ms per CTU at one
+            row beside its bound.
   cli       python -m hevce_tpu_torch in a subprocess on a PGM written from
             a golden image: the native and python engines must write the
             golden stream and recon PGM, --fast a stream that decodes to
@@ -130,12 +141,16 @@ Phases, each printed as one JSON line:
   mesh      the entry surface (hevce_tpu_torch/entry): entry() on the card
             must equal the same step on the CPU; the device step at sz 8
             and 32 split over the mesh (cuda:0, cuda:0) must equal the
-            unsplit step; dryrun_multichip(2) on the one card: the lockstep
-            mesh encode bit-exact against the native engine, the fast-mode
-            mesh encode decode-verified. K1 and K2 launch counts there.
+            unsplit step, each part replaying the rates-off node program of
+            its slot (device_step s a call, split and unsplit);
+            dryrun_multichip(2) on the one card: the lockstep mesh encode
+            bit-exact against the native engine, the fast-mode mesh encode
+            decode-verified. K1 and K2 launch counts there.
 
 On the fast paths every K1 count adds one step for each slice runner the
-run builds (its eager warm-up step on the card; runners_built()).
+run builds (its eager warm-up step on the card; runners_built()), and on
+the lockstep, spec and mesh paths one step for each event program built
+(programs_built(), warmup_launches()).
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
@@ -150,6 +165,7 @@ Usage: python3 chip_smoke.py [--seed N]
 """
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -207,6 +223,48 @@ def runners_built():
     from hevce_tpu_torch.models import wavefront as wf
 
     return wf._slice_runner_cache.cache_info().currsize
+
+
+# K1 and K2 launches of one step of each kind of event program (utils/
+# graphs): every program built runs one eager warm-up step on the card
+# before its capture, and every replay counts these again
+PROGRAM_LAUNCHES = {"node": (5, 0), "node_rates": (5, 1), "pu": (1, 1),
+                    "gather": (0, 0), "eval_2nx2n": (1, 0),
+                    "eval_tusplit": (4, 0)}
+
+
+def programs_built(since=0):
+    """{kind: event programs} captured since utils/graphs.CAPTURED[since]
+    (the slice runners' front steps are runners_built()'s)."""
+    from hevce_tpu_torch.utils import graphs
+
+    built = graphs.built(since)
+    built.pop("front", None)
+    return built
+
+
+def captured():
+    """how many steps this process has captured so far: the `since` of
+    programs_built and warmup_launches."""
+    from hevce_tpu_torch.utils import graphs
+
+    return len(graphs.CAPTURED)
+
+
+def warmup_launches(since):
+    """(K1, K2) launches of the warm-up steps of the programs built since
+    `since`; fails unless every one's replays count the launches its kind
+    makes (PROGRAM_LAUNCHES)."""
+    from hevce_tpu_torch.utils import graphs
+
+    for s in graphs.CAPTURED[since:]:
+        if s.kind != "front" and (s.launches["k1"], s.launches["k2"]) != \
+                PROGRAM_LAUNCHES[s.kind]:
+            fail(f"a {s.kind} program counts {s.launches} launches a "
+                 f"replay, expected {PROGRAM_LAUNCHES[s.kind]}")
+    built = programs_built(since)
+    return tuple(sum(n * PROGRAM_LAUNCHES[k][i] for k, n in built.items())
+                 for i in (0, 1))
 
 
 def fail(msg):
@@ -556,35 +614,106 @@ def phase_slice(torch, dev, rng, card):
 
 # ---------------------------------------------------------------- lockstep
 
-@contextlib.contextmanager
-def timed_parts(timer):
-    """time the parts of every lockstep event on the host, as the engine's
-    device_math phases do (the enqueue; nothing waits for the card):
-    eval{sz} (eval_2nx2n, eval_tusplit: K1 and the tensor ops around it),
-    opgen{sz} (op generation of the trial rates) and k2 (the K2 call)."""
-    from hevce_tpu_torch.models import cu_eval
-    from hevce_tpu_torch.ops import cabac_scan, coef_ops
-    from hevce_tpu_torch.parallel import lockstep
+LOCK_RUNS = ((False, False), (True, False), (False, True))  # rates, pipeline
 
-    parts = [(cu_eval, "eval_2nx2n", "eval"), (cu_eval, "eval_tusplit", "eval"),
-             (coef_ops, "put_coef_trials", "opgen"),
-             (lockstep, "_node_trials", "opgen"),
-             (cabac_scan, "advance_rates", "k2")]
-    saved = [getattr(mod, name) for mod, name, _ in parts]
 
-    def timed(fn, part):
-        def call(*args, **kw):
-            with timer.phase(part if part == "k2" else f"{part}{args[0]}"):
-                return fn(*args, **kw)
-        return call
+def lockstep_programs(dev):
+    """the lockstep phase's event programs by label: at B=18 in slot 0 the
+    node programs (sz 8 / 16 / 32, rates off and on) and the PU program,
+    at B=9 in slots 0 and 1 (the pipelined halves) the rates-off ones, and
+    each one's winner gather."""
+    from hevce_tpu_torch.parallel import lockstep as ls
 
-    for (mod, name, part), fn in zip(parts, saved):
-        setattr(mod, name, timed(fn, part))
-    try:
-        yield
-    finally:
-        for (mod, name, _), fn in zip(parts, saved):
-            setattr(mod, name, fn)
+    progs = {}
+    for B, run, rates_set in ((BATCH, 0, (False, True)),
+                              (BATCH // 2, 0, (False,)),
+                              (BATCH // 2, 1, (False,))):
+        where = f"B={B} slot={run}"
+        for rates in rates_set:
+            for sz in NODE_PER_CTU:
+                progs[f"node{sz}{'_rates' if rates else ''} {where}"] = \
+                    ls._node_program(sz, QPD6, B, rates, dev, (run, 0))
+        progs[f"pu {where}"] = ls._pu_program(QPD6, B, dev, (run, 0))
+    for label, p in list(progs.items()):
+        progs[f"{label} gather"] = ls._gather_program(p)
+    return progs
+
+
+def program_row(label, prog):
+    """a program's capture cost: warm-up, capture and instantiate seconds,
+    graph nodes, pool GiB, launches a replay."""
+    run = prog.run
+    if run.graph is None:
+        fail(f"the program {label} holds no graph")
+    return {"key": label, "kind": prog.kind, "nodes": graph_nodes(run.graph),
+            **run.stats, "pool_gib": run.stats["pool_bytes"] / 2**30,
+            "launches": run.launches}
+
+
+def replay_vs_plain(torch, prog, plain, reps):
+    """prog replayed on the inputs it holds (its last event's) against its
+    plain step on the same inputs: the outputs must be equal (tolerance 0).
+    Per call: the replay's card ms (CUDA events over reps replays), its
+    wall ms (host clock to a synchronize) and the plain step's wall and
+    card ms (reps calls)."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0) / reps, \
+            e0.elapsed_time(e1) / reps
+
+    with torch.no_grad():
+        got, wall, card = timed(prog)
+        got = [t.cpu().numpy().tobytes() for t in got]
+        want, plain_wall, plain_card = timed(plain)
+    if got != [t.cpu().numpy().tobytes() for t in want]:
+        return None
+    return {"replay_wall_ms": wall, "replay_card_ms": card,
+            "plain_wall_ms": plain_wall, "plain_card_ms": plain_card,
+            "equal": True}
+
+
+def events_vs_plain(torch, progs):
+    """per event kind of the main path (B=18, slot 0), the program's replay
+    against its plain step (lockstep._node_step, parallel/batch.
+    device_step, _pu_step, _gather_winners) on the same inputs."""
+    from hevce_tpu_torch.parallel import batch as pb
+    from hevce_tpu_torch.parallel import lockstep as ls
+
+    out = {}
+    for label, prog in progs.items():
+        if not label.endswith(f"B={BATCH} slot=0") and not label.endswith(
+                f"B={BATCH} slot=0 gather"):
+            continue
+        a = prog.args
+        if prog.kind == "gather":
+            producer = progs[label[:-len(" gather")]]
+            producer()      # its outputs again, from the inputs it holds
+            plain = lambda a=a, p=producer: ls._gather_winners(
+                *ls._candidates(p), a[0])
+        elif prog.kind == "pu":
+            plain = lambda a=a: ls._pu_step(QPD6, a[0], a[1], a[2] != 0, a[3])
+        else:
+            sz = (a[0].shape[1] - 1) // 2
+            step = (functools.partial(ls._node_step, sz, QPD6)
+                    if prog.kind == "node_rates"
+                    else functools.partial(pb.device_step, sz, QPD6))
+            plain = lambda a=a, step=step: step(a[0], a[1], a[2] != 0,
+                                                *a[3:])
+        reps = 3 if prog.kind == "node_rates" else 10
+        row = replay_vs_plain(torch, prog, plain, reps)
+        if row is None:
+            fail(f"the lockstep program {label} differs from its plain step "
+                 f"on the same inputs")
+        out[label.split()[0] + (" gather" if prog.kind == "gather"
+                                else "")] = row
+    return out
 
 
 def phase_lockstep(torch, dev, rng, card):
@@ -600,27 +729,33 @@ def phase_lockstep(torch, dev, rng, card):
     ctus = (LOCK_SHAPE[0] // 32) * (LOCK_SHAPE[1] // 32)
     want_node = sum(NODE_PER_CTU.values()) * ctus
     want_pu = PU_PER_CTU * ctus
-    # warm-up: one small batch through both modes
-    for nr in (False, True):
-        lockstep.encode_batch([im[:32, :32] for im in imgs[:2]], QPD6,
-                              node_rates=nr, device=dev)
+    # build every run's programs: one CTU an image through each run (each
+    # program's first event runs a warm-up step and captures it)
+    crops = [im[:32, :32] for im in imgs]
+    since = captured()
+    t0 = time.perf_counter()
+    for node_rates, pipeline in LOCK_RUNS:
+        lockstep.encode_batch(crops, QPD6, node_rates=node_rates,
+                              pipeline=pipeline, device=dev)
     torch.cuda.synchronize()
+    build = {"wall_s": time.perf_counter() - t0,
+             "programs": dict(programs_built(since))}
 
     runs, k1_total, k2_total = [], 0, 0
-    for node_rates, pipeline in ((False, False), (True, False),
-                                 (False, True)):
+    for node_rates, pipeline in LOCK_RUNS:
         halves = 2 if pipeline else 1
-        timer, parts = PhaseTimer(), PhaseTimer()
+        timer = PhaseTimer()
         fused_eval.LAUNCHES = 0
         cabac_scan.LAUNCHES = 0
+        since = captured()
         t0 = time.perf_counter()
-        with timed_parts(parts):
-            streams, rcons = lockstep.encode_batch(
-                imgs, QPD6, node_rates=node_rates, pipeline=pipeline,
-                timer=timer, device=dev)
-            torch.cuda.synchronize()
+        streams, rcons = lockstep.encode_batch(
+            imgs, QPD6, node_rates=node_rates, pipeline=pipeline,
+            timer=timer, device=dev)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+        w1, w2 = warmup_launches(since)
         # events are counted per engine: each half runs the whole schedule
         node = sum(n for k, n in timer.counts.items()
                    if k.startswith("device_math_node"))
@@ -629,13 +764,15 @@ def phase_lockstep(torch, dev, rng, card):
         if (node, pu) != (halves * want_node, halves * want_pu):
             fail(f"lockstep ran {node} node / {pu} PU events, expected "
                  f"{halves} x {want_node} / {want_pu}")
-        if k1 != 5 * node + pu:
+        if k1 != 5 * node + pu + w1:
             fail(f"K1 launched {k1} times on the lockstep path, expected "
-                 f"5 x {node} node + {pu} PU events")
-        if k2 != pu + (node if node_rates else 0):
+                 f"5 x {node} node + {pu} PU events + {w1} in the warm-up "
+                 f"steps of the programs built")
+        if k2 != pu + (node if node_rates else 0) + w2:
             fail(f"K2 launched {k2} times on the lockstep path "
                  f"(node_rates={node_rates}), expected {pu} PU"
-                 + (f" + {node} node events" if node_rates else " events"))
+                 + (f" + {node} node events" if node_rates else " events")
+                 + f" + {w2} in the warm-up steps of the programs built")
         for i, (s, r) in enumerate(zip(streams, rcons)):
             if s != refs[i][0] or not np.array_equal(r, refs[i][1]):
                 fail(f"lockstep image {i} (node_rates={node_rates}, "
@@ -645,26 +782,19 @@ def phase_lockstep(torch, dev, rng, card):
                 fail(f"lockstep stream {i} does not decode to its recon")
         k1_total += k1
         k2_total += k2
-        per_event = {}
-        for kind, n in [("pu", pu)] + [
-                (f"node{sz}", timer.counts[f"device_math_node{sz}"])
-                for sz in NODE_PER_CTU]:
-            sz = 4 if kind == "pu" else int(kind[4:])
-            per_event[kind] = {p: 1e3 * parts.totals[f"{p}{sz}"] / n
-                               for p in ("eval", "opgen")}
         runs.append({"node_rates": node_rates, "pipeline": pipeline,
                      "wall_s": wall,
                      "events": {"node": node, "pu": pu, "fetch": fetch},
                      "events_per_s": (node + pu + fetch) / halves / wall,
                      "k1_launches": k1, "k2_launches": k2,
+                     "programs_built": dict(programs_built(since)),
                      "phases_s": dict(timer.totals),
-                     "host_ms_per_event": per_event,
-                     "k2_call_host_ms": 1e3 * parts.totals["k2"]
-                     / max(parts.counts["k2"], 1),
                      "byte_identical": len(streams)})
+    progs = lockstep_programs(dev)
+    keys = [program_row(label, p) for label, p in progs.items()]
+    events = events_vs_plain(torch, progs)
     # where one CTU's time goes: torch.profiler over a batch of one-CTU
     # crops with node rates on (wall timed inside the profiled region)
-    crops = [im[:32, :32] for im in imgs]
     wall = []
 
     def one_ctu():
@@ -688,7 +818,16 @@ def phase_lockstep(torch, dev, rng, card):
           "shape": list(LOCK_SHAPE), "ctus_per_image": ctus, "qpd6": QPD6,
           "batch": BATCH, "bytes_mean": float(np.mean([len(r[0])
                                                        for r in refs])),
-          "runs": runs, "profile_one_ctu": prof})
+          "build": build, "runs": runs, "program_keys": keys,
+          "events_vs_plain": events, "profile_one_ctu": prof,
+          "basis": "build: one CTU an image through each run, which "
+                   "builds every program the runs replay (warm-up step, "
+                   "capture, instantiate: program_keys, pool_gib the "
+                   "memory each capture reserved); events_vs_plain: per "
+                   "event kind at B=18, the replay on the inputs of the "
+                   "program's last event against its plain step on the "
+                   "same inputs (equal, tolerance 0), wall ms to a "
+                   "synchronize and card ms by CUDA events, per call"})
     return k1_total, k2_total
 
 
@@ -1230,6 +1369,20 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
 SPEC_IMAGES = (0, 1, 2, 3, 4, 22)
 
 
+def spec_programs(dev):
+    """the spec encoder's eval programs at QPD6 (one per (fn, sz)): warm-up,
+    capture and instantiate seconds, graph nodes, pool GiB."""
+    from hevce_tpu_torch.models import cu_eval, encoder
+
+    rows = []
+    for fn, sizes in ((cu_eval.eval_2nx2n, (4, 8, 16, 32)),
+                      (cu_eval.eval_tusplit, (8, 16, 32))):
+        for sz in sizes:
+            prog = encoder._eval_program(fn, sz, QPD6, dev)
+            rows.append(program_row(f"{fn.__name__} sz={sz}", prog))
+    return rows
+
+
 def phase_spec(torch, dev, card):
     """the Python spec encoder on the card against the golden streams and
     the native engine; K1's launches, K1 against its plain version at the
@@ -1245,15 +1398,19 @@ def phase_spec(torch, dev, card):
                for _, im, _ in imgs)
     timer = PhaseTimer()
     fused_eval.LAUNCHES = 0
+    since = captured()
     t0 = time.perf_counter()
     out = [encoder.encode_image(im, q, device=dev, timer=timer)
            for _, im, q in imgs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_eval.LAUNCHES
-    if launches != sum(K1_PER_CTU.values()) * ctus:
+    built = programs_built(since)
+    w1 = warmup_launches(since)[0]
+    if launches != sum(K1_PER_CTU.values()) * ctus + w1:
         fail(f"K1 launched {launches} times on the spec path, expected "
-             f"{sum(K1_PER_CTU.values())} x {ctus} CTUs")
+             f"{sum(K1_PER_CTU.values())} x {ctus} CTUs + {w1} in the "
+             f"warm-up steps of the programs built ({dict(built)})")
     for (t, im, q), (s, r) in zip(imgs, out):
         if s != bytes(g[f"stream_{t}"]) or not np.array_equal(
                 r, g[f"rcon_{t}"]):
@@ -1264,7 +1421,22 @@ def phase_spec(torch, dev, card):
             fail(f"spec encode of golden image {t} differs from the native "
                  f"engine's")
 
-    # K1 at the path's own calls, taken at the wrapper on the 32x32 images
+    # K1 at the path's own calls: each eval's inputs taken at evaluate() on
+    # the 32x32 images (a replay calls no wrapper), then its plain cu_eval
+    # function on them with K1's calls taken at the wrapper
+    evals, evaluate = [], encoder._EncodeState.evaluate
+
+    def taken_eval(st, fn, sz, *args):
+        evals.append((fn, sz, st.qpd6, [np.array(a) for a in args]))
+        return evaluate(st, fn, sz, *args)
+
+    encoder._EncodeState.evaluate = taken_eval
+    try:
+        for t, im, q in imgs:
+            if im.shape == (32, 32):
+                encoder.encode_image(im, q, device=dev)
+    finally:
+        encoder._EncodeState.evaluate = evaluate
     calls, k1 = [], fused_eval.pipeline_sse
 
     def taken(sz, q, pred, blk):
@@ -1273,9 +1445,11 @@ def phase_spec(torch, dev, card):
 
     fused_eval.pipeline_sse = taken
     try:
-        for t, im, q in imgs:
-            if im.shape == (32, 32):
-                encoder.encode_image(im, q, device=dev)
+        with torch.no_grad():
+            for fn, sz, q, args in evals:
+                top, left, flags, orig = (torch.from_numpy(a).to(dev)
+                                          for a in args)
+                fn(sz, q, top, left, flags, orig)
     finally:
         fused_eval.pipeline_sse = k1
     seen = {}
@@ -1310,6 +1484,8 @@ def phase_spec(torch, dev, card):
           "device_eval_s_per_ctu": eval_s / ctus,
           "host_trials_s_per_ctu": (wall - eval_s) / ctus,
           "device_evals": timer.counts["device_eval"],
+          "programs_built": dict(built),
+          "program_stats": spec_programs(dev),
           "byte_identical": len(imgs), "k1_checked": len(calls),
           "k1_max_abs_err": max_err,
           "k1_card_ms_per_ctu": res["ms_per_ctu"],
@@ -1380,6 +1556,7 @@ def phase_mesh(torch, dev, card):
         if not (a.is_cuda and torch.equal(a.cpu(), b)):
             fail("entry() on the card differs from the same step on the CPU")
     mesh = (dev, dev)
+    step_s = {}
     for sz in (8, 32):
         nodes = pb.random_node_batch(sz, 4, seed=sz)
         got = pb.device_step_fn(sz, QPD6, mesh=mesh)(*nodes)
@@ -1388,9 +1565,22 @@ def phase_mesh(torch, dev, card):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"the device step at sz={sz} over {mesh} differs from the "
                  f"unsplit step")
+        # the device eval's seconds a call once its programs are built: the
+        # mesh step from the host's arrays, the unsplit one from the card's
+        on_card = [torch.from_numpy(a).to(dev) for a in nodes]
+        for split, step, args in (
+                ("mesh", pb.device_step_fn(sz, QPD6, mesh=mesh), nodes),
+                ("unsplit", pb.device_step_fn(sz, QPD6), on_card)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(*args)
+            torch.cuda.synchronize()
+            step_s[f"sz{sz}_{split}"] = (time.perf_counter() - t0) / 10
     fused_eval.LAUNCHES = 0
     cabac_scan.LAUNCHES = 0
     built0 = runners_built()
+    since = captured()
     said = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(said):
@@ -1402,14 +1592,16 @@ def phase_mesh(torch, dev, card):
     wall = time.perf_counter() - t0
     k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
     built = runners_built() - built0
+    w1, w2 = warmup_launches(since)
     # each of the two parts: the steps at sz 8 and 32 (5 launches each; the
     # unsplit steps they are held to 5 more each), the lockstep's 6 CTUs
     # with node rates on (21 node events of 5 K1 and one K2 launch, 64 PU
     # events of one each) and the fast mode's 12 front steps; the parts
-    # share one slice runner, whose warm-up step runs once
+    # share one slice runner, whose warm-up step runs once; each event
+    # program built (one a part) runs its warm-up step
     want_k1 = (2 * (2 * 5 + 6 * (21 * 5 + 64) + 12 * LAUNCHES_PER_FRONT)
-               + 2 * 5 + built * LAUNCHES_PER_FRONT)
-    want_k2 = 2 * 6 * (21 + 64)
+               + 2 * 5 + built * LAUNCHES_PER_FRONT + w1)
+    want_k2 = 2 * 6 * (21 + 64) + w2
     if (k1, k2) != (want_k1, want_k2):
         fail(f"dryrun_multichip(2) launched K1 {k1} and K2 {k2} times, "
              f"expected {want_k1} and {want_k2}")
@@ -1417,7 +1609,12 @@ def phase_mesh(torch, dev, card):
           "entry_equal_cpu": True, "steps_equal_unsplit": [8, 32],
           "dryrun_wall_s": wall, "dryrun": said.getvalue().splitlines(),
           "k1_launches": k1, "runners_built": built,
-          "k2_launches": k2})
+          "programs_built": dict(programs_built(since)),
+          "k2_launches": k2, "device_step_s": step_s,
+          "device_step_basis": "host wall to a synchronize per "
+                               "device_step_fn call at 4 rows, mean of 10 "
+                               "(replays; mesh: two parts of 2 on one "
+                               "card)"})
     return k1, k2
 
 

@@ -8,11 +8,15 @@ contexts, runs the speculative trial encodes and commits the winners, so
 its streams are bit-identical to the reference encoder's. Each CU node's
 35-mode candidates come from models/cu_eval: eval_2nx2n (one K1 launch on
 the card) and the dense eval_tusplit (four) per node, and eval_2nx2n per
-NxN PU, 169 K1 launches per CTU at one row of 35 candidates each.
+NxN PU, 169 K1 launches per CTU at one row of 35 candidates each. Each
+evaluation replays a program of its (fn, sz, qpd6, device) (_eval_program,
+a CUDA graph on the card).
 
 The batched production paths are parallel/lockstep (bit-exact) and the
 native C++ engine (runtime/native), which runs this same algorithm.
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -21,6 +25,7 @@ from hevce_tpu_torch.bitstream import headers, syntax
 from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as C
 from hevce_tpu_torch.utils import device as _device
+from hevce_tpu_torch.utils import graphs
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 I32_MAX = 2 ** 31 - 1
@@ -41,12 +46,29 @@ def _sse(a, b) -> int:
     return int((d * d).sum())
 
 
+@functools.lru_cache(maxsize=None)
+def _eval_program(fn, sz: int, qpd6: int,
+                  device: torch.device) -> graphs.Program:
+    """fn (cu_eval.eval_2nx2n or eval_tusplit) of one node at (sz, qpd6) as a
+    program (utils/graphs.Program; the JAX package's jit_eval_2nx2n(sz, qpd6)
+    / jit_eval_tusplit(sz, qpd6)): inputs ctx_top (1 + 2sz), ctx_left (2sz),
+    the four flags and the originals (sz, sz), one row; outputs and fetched
+    its (quant, recon, sse). On the card a replay launches K1 once
+    (eval_2nx2n) or four times (eval_tusplit). device must carry its index
+    (utils/device.normal)."""
+    def step(top, left, flags, orig):
+        return fn(sz, qpd6, top, left, flags != 0, orig)
+    return graphs.Program(fn.__name__, [(1 + 2 * sz,), (2 * sz,), (4,),
+                                        (sz, sz)], step, device,
+                          fetch=(0, 1, 2))
+
+
 class _EncodeState:
     """Per-image mutable encode state owned by the arbiter."""
 
     def __init__(self, img, qpd6, dev, timer):
         self.qpd6 = qpd6
-        self.dev = dev
+        self.dev = _device.normal(dev)
         self.timer = timer
         ysz0, xsz0 = img.shape
         ysz0, xsz0 = min(ysz0, C.MAX_YSZ), min(xsz0, C.MAX_XSZ)
@@ -67,12 +89,13 @@ class _EncodeState:
 
     def evaluate(self, fn, sz, ctx_top, ctx_left, flags, blk_orig):
         """cu_eval.eval_2nx2n or the dense eval_tusplit of one node on the
-        device; its (quant, recon, sse) come back to the host."""
-        up = lambda a: torch.from_numpy(a).to(self.dev)
+        device, as a replay of its program (_eval_program); its (quant,
+        recon, sse) come back to the host in arrays of their own."""
+        prog = _eval_program(fn, sz, self.qpd6, self.dev)
         with self.timer.phase("device_eval"), torch.no_grad():
-            out = fn(sz, self.qpd6, up(ctx_top), up(ctx_left), up(flags),
-                     up(blk_orig.astype(np.uint8)))
-            return [t.cpu().numpy() for t in out]
+            prog.load([ctx_top, ctx_left, flags, blk_orig])
+            prog()
+            return [h.copy() for h in prog.fetched()]
 
     # --- clamped-read helpers (GET2D semantics, reference src/HEVCe.c:119) ---
 

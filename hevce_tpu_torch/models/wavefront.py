@@ -35,19 +35,19 @@ have no dependency across images, so the streams do not change.
 import collections
 import functools
 import os
-import time
 
 import numpy as np
 import torch
 
 from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as Cst
-from hevce_tpu_torch.ops import fused_eval, intra, rdcost
+from hevce_tpu_torch.ops import intra, rdcost
 from hevce_tpu_torch.ops import quant as qops
 from hevce_tpu_torch.ops import satd as satd_ops
 from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
+from hevce_tpu_torch.utils import graphs
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 CTU = 32
@@ -758,6 +758,7 @@ class _SliceRunner:
         if fetch_qc:
             self.cols.append(z((D, B, R, 1024), torch.int16))
         self.S = z((D, B, R, CTU, CTU), torch.uint8) if want_recon else None
+        self.run = self.step          # capture() replaces it by its replay
         self.graph = None
         self.k1_per_step = 0
         self.stats = {}
@@ -790,49 +791,23 @@ class _SliceRunner:
         self.PME.copy_(pme_col)
 
     def capture(self):
-        """CUDA: run the step once eagerly on a side stream (the warm-up:
-        cuBLAS's handle and workspace for the stream, the lazy uploads of
-        the constant tables, K1's library and modules), then capture it on
-        that stream into a graph with a private memory pool, and
-        instantiate it. A failed capture raises. K1's launch counter keeps
-        counting the kernels the card runs: the warm-up's count stays, the
-        capture's (no kernel runs) is taken back and added again at every
-        replay. stats: the seconds of the warm-up step, the capture and the
-        instantiation, and the bytes the capture reserved (its pool)."""
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            self.step()
-        stream.synchronize()
-        t1 = time.perf_counter()
-        torch.cuda.empty_cache()      # as the capture does first: the pool
-        mem0 = torch.cuda.memory_reserved(self.device)    # is what it adds
-        n0 = fused_eval.LAUNCHES
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        try:
-            with torch.cuda.graph(graph, stream=stream):
-                self.step()
-        finally:
-            self.k1_per_step = fused_eval.LAUNCHES - n0
-            fused_eval.LAUNCHES = n0
-        t2 = time.perf_counter()
-        graph.instantiate()
-        self.stats = {"warmup_s": t1 - t0, "capture_s": t2 - t1,
-                      "instantiate_s": time.perf_counter() - t2,
-                      "pool_bytes": torch.cuda.memory_reserved(self.device)
-                      - mem0}
-        self.graph = graph
+        """CUDA: capture the step (utils/graphs.CapturedStep: one eager
+        warm-up step on a side stream, the capture into a graph with a
+        private pool, its instantiation; a failed capture raises). K1's
+        launch counter keeps counting the kernels the card runs: the
+        warm-up's count stays, the capture's is added again at every
+        replay. graph, k1_per_step (K1 launches a replay) and stats (the
+        warm-up, capture and instantiate seconds, the pool's bytes) are the
+        captured step's."""
+        self.run = graphs.CapturedStep(self.step, self.device, "front")
+        self.graph, self.stats = self.run.graph, self.run.stats
+        self.k1_per_step = self.run.launches["k1"]
 
     def front(self, d: int):
         """front step d: a replay of the captured step, or (not captured)
         the step itself."""
         self.d.fill_(d)
-        if self.graph is None:
-            self.step()
-            return
-        self.graph.replay()
-        fused_eval.LAUNCHES += self.k1_per_step
+        self.run()
 
     def tail(self):
         """unskew the record columns into raster order and checksum them:
@@ -995,7 +970,7 @@ def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
     args = [torch.from_numpy(a).to(dev) for a in arrays]
     rmd = _resolve_rmd(rmd)
 
-    def run(O, cv, sv):
+    def run(part, O, cv, sv):
         return _slice_runner_cache(qpd6, R, Cc, O.shape[0], rmd, fetch_qc,
                                    want_recon and fetch_qc,
                                    _device.normal(O.device))(O, cv, sv)

@@ -22,8 +22,6 @@ This is the plain version of kernel K2 (ops/cabac_scan). Op encoding
   2 terminate bin: bin << 10
   3 nop (padding)
 """
-import functools
-
 import numpy as np
 import torch
 
@@ -59,8 +57,10 @@ def split_bypass(value, length):
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _context_row(qpd6: int, device: torch.device):
+    """the initial context states at qpd6 as an int32 row on `device`,
+    uploaded once."""
     return torch.as_tensor(
         np.frombuffer(bytes(cb.new_context_set(qpd6)), np.uint8).astype(
             np.int32), device=device)

@@ -419,8 +419,10 @@ def _palette(sz: int, full_trial: bool):
     return palette, remap
 
 
-@functools.lru_cache(maxsize=None)
+@_device.cached_per_device
 def _palette_tensors(sz: int, full_trial: bool, device: torch.device):
+    """_palette(sz, full_trial) on `device`, uploaded once: (palette as
+    int64 indices, remap)."""
     palette, remap = _palette(sz, full_trial)
     return (torch.as_tensor(palette, device=device).long(),
             torch.as_tensor(remap, device=device))

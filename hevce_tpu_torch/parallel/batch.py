@@ -10,7 +10,6 @@ the JAX package's 'img' mesh axis is. A device may appear more than once
 (two parts on one card).
 """
 import contextlib
-import functools
 
 import numpy as np
 import torch
@@ -51,13 +50,17 @@ def _gather(outs, dev):
                        for j in range(len(first)))
 
 
-def sharded(fn, mesh, *args):
+def sharded(fn, mesh, *args, gather=True):
     """fn(*args) split over mesh: every argument's leading axis is cut into
-    len(mesh) equal contiguous parts, part i runs fn on mesh[i], and the
-    outputs are gathered in order on mesh[0]. The batch must be a multiple
-    of the mesh size. mesh=None: fn(*args) as they lie."""
+    len(mesh) equal contiguous parts, and part i runs fn(i, *its rows) with
+    mesh[i] the current device (a tensor's rows moved there first; numpy
+    rows passed as they are, for fn to load). The outputs are gathered in
+    order on mesh[0], or with gather=False returned as the list of the
+    parts'. The batch must be a multiple of the mesh size. mesh=None:
+    fn(0, *args) as they lie (in a list of one with gather=False)."""
     if mesh is None:
-        return fn(*args)
+        out = fn(0, *args)
+        return out if gather else [out]
     n = args[0].shape[0]
     check_split(n, mesh)
     k = n // len(mesh)
@@ -65,9 +68,11 @@ def sharded(fn, mesh, *args):
     for i, dev in enumerate(mesh):
         on = (torch.cuda.device(dev) if dev.type == "cuda"
               else contextlib.nullcontext())
+        rows = [a[i * k:(i + 1) * k] for a in args]
         with on:
-            outs.append(fn(*(a[i * k:(i + 1) * k].to(dev) for a in args)))
-    return _gather(outs, mesh[0])
+            outs.append(fn(i, *(r.to(dev) if isinstance(r, torch.Tensor)
+                                else r for r in rows)))
+    return _gather(outs, mesh[0]) if gather else outs
 
 
 def device_step(sz: int, qpd6: int, ctx_top, ctx_left, flags, blk_orig):
@@ -87,14 +92,31 @@ def device_step_fn(sz: int, qpd6: int, mesh=None):
     """device_step at (sz, qpd6) as a function of its four inputs (the JAX
     package's jit_device_step): on the inputs' own device, or split over
     `mesh` (make_mesh) with the outputs gathered on its first device. The
-    inputs are tensors or numpy arrays."""
-    step = functools.partial(device_step, sz, qpd6)
+    inputs are tensors or numpy arrays. Each part replays the rates-off
+    node program of its device and batch (parallel/lockstep._node_program,
+    part i in slot (0, i)); what it returns is fresh memory."""
+    # lockstep imports this module: the program cache is looked up at call
+    from hevce_tpu_torch.parallel import lockstep
+
     mesh = None if mesh is None else make_mesh(mesh)
 
     def run(*args):
-        args = [torch.as_tensor(a) for a in args]
+        args = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                for a in args]
+        first = args[0]
+        devs = mesh or (first.device if isinstance(first, torch.Tensor)
+                        else torch.device("cpu"),)
+
+        def part(i, *rows):
+            prog = lockstep._node_program(sz, qpd6, rows[0].shape[0], False,
+                                          _device.normal(devs[i]), (0, i))
+            prog.load(rows)
+            return prog()
         with torch.no_grad():
-            return sharded(step, mesh, *args)
+            out = sharded(part, mesh, *args)
+            if mesh is None:      # the program's own outputs: copy them out
+                out = tuple(t.clone() for t in out)
+        return out
     return run
 
 

@@ -18,17 +18,36 @@ a PU event runs eval_2nx2n(4) and put_coef_rates (one K1, one K2 launch).
 With pipeline=True the batch is split into two halves, each its own
 engine. Every round completes both halves, then dispatches both, so each
 half's C++ arbiters run on their worker threads while the Python thread
-serves the other half. Each half pays a whole event's launches, and the
-path is bound by the host's enqueue of them, so on the card the split is
+serves the other half. Each half runs a whole event's kernels, thousands
+of small ones, and they bound the path on the card, so there the split is
 slower (PERF.md); it is kept for parity with the JAX package's API.
 Bit-exact either way.
 
 With a mesh (parallel/batch) every node and PU step splits its batch over
-the mesh's devices, one equal part each, and gathers the results on the
-first; the arbitration stays per image, so the streams do not change.
+the mesh's devices, one equal part each; each part's results come back to
+the host on their own, and the arbitration stays per image, so the streams
+do not change.
+
+Event programs (the JAX package's lru-cached jits _jit_node_step,
+_jit_pu_step, _jit_gather_*): each event's step runs as a program over
+static buffers (utils/graphs.Program), one per (event shape, B, device,
+slot). On the card its first build runs an eager warm-up step and captures
+the step as a CUDA graph; every event then loads its request rows (one host
+copy into a pinned staging buffer, one copy to the card), replays the graph
+and fetches its results into pinned host buffers. _node_step, _pu_step and
+_gather_winners are the plain versions, what the programs capture.
+
+A program's outputs are rewritten by its next replay. A run's node or PU
+outputs stay on the device until its next event, the fetch, reads them, and
+a run never dispatches its next event before it has completed the one
+before, so what one run holds is safe from its own replays; every run of a
+pipelined call and every mesh part has a slot of its own, (run, part), so
+no run or part replays a program whose outputs another still holds.
+HEVCE_ASYNC_FETCH=1 starts the copies to the host at dispatch (behind a
+CUDA event that complete() waits on) instead of at complete().
 """
-import functools
 import ctypes
+import functools
 import os
 import sys
 
@@ -42,6 +61,7 @@ from hevce_tpu_torch.ops import coef_ops as co
 from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
+from hevce_tpu_torch.utils import graphs
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 MODES = 35
@@ -143,40 +163,122 @@ def _gather_winners(qs, rs, sel):
             torch.where(keep, r[rows, lane], 0))
 
 
+# a fresh coder's 7 scalars (cabac_sim.FIELDS order): the fork of a node
+# program's warm-up step
+_FRESH_CODER = (510, 0, 23, 0, 0xFF, 0, 0)
+
+
+def _request_fields(sz: int, B: int):
+    """a node / PU event's request rows: the top row (1 + 2sz), the left
+    column (2sz), the four border flags, the originals (sz, sz)."""
+    return [(B, 1 + 2 * sz), (B, 2 * sz), (B, 4), (B, sz, sz)]
+
+
+@functools.lru_cache(maxsize=None)
+def _node_program(sz: int, qpd6: int, B: int, node_rates: bool,
+                  device: torch.device, slot) -> graphs.Program:
+    """A node event's program: hevce_tpu's _jit_node_step(sz, qpd6, mesh)
+    with node_rates, its jit_eval_2nx2n + jit_eval_tusplit without. Inputs:
+    the request rows and, with node_rates, the coder fork (state7 (B, 7),
+    ctxs (B, 142), meta (B, 4)); outputs: _node_step's (q1, r1, s1, q4, r4,
+    s4, rates2, rates3), or parallel/batch.device_step's first six; fetched:
+    the rates and the SSEs. On the card K1 launches 5 times a replay, and K2
+    once with node_rates. B, the device (with its index, utils/device.
+    normal) and the slot (run, part) are in the key (module docstring)."""
+    fields = _request_fields(sz, B)
+    if node_rates:
+        fields += [(B, 7), (B, 142), (B, 4)]
+
+    def step(top, left, flags, orig, *fork):
+        if node_rates:
+            return _node_step(sz, qpd6, top, left, flags != 0, orig, *fork)
+        return pb.device_step(sz, qpd6, top, left, flags != 0, orig)
+
+    def fresh_fork(*inputs):
+        inputs[4][:] = torch.tensor(_FRESH_CODER, dtype=torch.int32)
+    return graphs.Program("node_rates" if node_rates else "node", fields,
+                          step, device,
+                          fetch=(6, 7, 2, 5) if node_rates else (2, 5),
+                          fill=fresh_fork if node_rates else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _pu_program(qpd6: int, B: int, device: torch.device,
+                slot) -> graphs.Program:
+    """A PU event's program (hevce_tpu's _jit_pu_step(qpd6, mesh)): inputs
+    the request rows at sz 4; outputs _pu_step's (q1, r1, s1, rates);
+    fetched: s1 and the rates. K1 and K2 launch once a replay."""
+    def step(top, left, flags, orig):
+        return _pu_step(qpd6, top, left, flags != 0, orig)
+    return graphs.Program("pu", _request_fields(4, B), step, device,
+                          fetch=(2, 3))
+
+
+def _candidates(prog: graphs.Program):
+    """(quants, recons) of each TU layout in a node or PU program's last
+    outputs."""
+    out = prog.out
+    if prog.kind == "pu":
+        return (out[0],), (out[1],)
+    return (out[0], out[3]), (out[1], out[4])
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_program(producer: graphs.Program) -> graphs.Program:
+    """The winner gather of a node or PU program's candidates (hevce_tpu's
+    _jit_gather_node(sz) / _jit_gather_pu()): input sel (B,); outputs and
+    fetched: _gather_winners' quant and recon rows. It reads the producer's
+    outputs where they lie, so there is one per producer, whose key holds
+    the layout count, sz, B, the device and the slot."""
+    B = producer.args[0].shape[0]
+    return graphs.Program(
+        "gather", [(B,)],
+        lambda sel: _gather_winners(*_candidates(producer), sel),
+        producer.device, fetch=(0, 1))
+
+
 def _wrap32(x: int) -> int:
     return (x + (1 << 31)) % (1 << 32) - (1 << 31)
 
 
+def _check_transfer(tensors, host):
+    """HEVCE_VERIFY_TRANSFERS=1: each array's int32 wrap-around sum is also
+    computed on the device and compared with the host copy's, so a
+    corrupted transfer fails loudly instead of producing a wrong stream; it
+    costs one more round trip per fetch, so it is opt-in."""
+    want = [_wrap32(int(v)) for v in torch.stack(
+        [t.to(torch.int64).sum() for t in tensors]).tolist()]
+    got = [_wrap32(int(h.astype(np.int64).sum())) for h in host]
+    if got != want:
+        raise IOError("device->host transfer checksum mismatch: "
+                      f"expected {want}, got {got}")
+
+
 def _get(tensors, verify: bool):
-    """Copy device results to the host. With verify (HEVCE_VERIFY_TRANSFERS
-    =1) each array's int32 wrap-around sum is also computed on the device
-    and compared with the host copy's, so a corrupted transfer fails loudly
-    instead of producing a wrong stream; it costs one more round trip per
-    fetch, so it is opt-in."""
+    """Copy device results to the host (the full fetch), checked with
+    verify."""
     host = [t.cpu().numpy() for t in tensors]
     if verify:
-        want = [_wrap32(int(v)) for v in torch.stack(
-            [t.to(torch.int64).sum() for t in tensors]).tolist()]
-        got = [_wrap32(int(h.astype(np.int64).sum())) for h in host]
-        if got != want:
-            raise IOError("device->host transfer checksum mismatch: "
-                          f"expected {want}, got {got}")
+        _check_transfer(tensors, host)
     return host
 
 
 class _Run:
     """One lockstep engine instance (one C++ BatchEngine and its device
     state), with the per-event work split into next / dispatch / complete
-    so a caller can keep two instances in flight (pipelined halves)."""
+    so a caller can keep two instances in flight (pipelined halves). slot
+    tells the programs of two runs of one call apart."""
 
     def __init__(self, lib, images, qpd6, node_rates, device, verify, timer,
-                 mesh=None):
+                 mesh=None, slot=0, async_fetch=False):
         self.lib = lib
         self.qpd6 = qpd6
         self.node_rates = node_rates
-        self.dev = device
         self.mesh = mesh
+        self.devs = tuple(_device.normal(d) for d in (mesh or (device,)))
+        self.slot = slot
         self.verify = verify
+        self.async_fetch = async_fetch
         self.timer = timer
         self.B = B = len(images)
         self.ysz, self.xsz = images[0].shape
@@ -210,8 +312,9 @@ class _Run:
         self._szv = ctypes.c_int(0)
         self.kind = None
         self.sz = 0
-        self.pend = None    # (quants, recons) of each layout, for the fetch
-        self._out = None    # device results of the current event
+        self.progs = ()     # the node / PU event's program of each part,
+        #                     whose candidates the fetch event reads
+        self._out = None    # the fetch event's mode, sel and programs
         self.done = False
 
     # -- event machinery ----------------------------------------------------
@@ -225,50 +328,62 @@ class _Run:
             self.done = True
         return self.kind
 
-    def _up(self, a):
-        """a request buffer on the device. The copy is taken now, blocking:
-        the engine rewrites these buffers once complete() resupplies it."""
-        return torch.from_numpy(np.array(a)).to(self.dev)
+    def _replay(self, program, reqs):
+        """Each part's rows into its program, and its replay: program(i, k)
+        is part i's program for k rows. The rows are copied before this
+        returns (the engine rewrites its request buffers once complete()
+        resupplies it). With HEVCE_ASYNC_FETCH=1 the fetches start too.
+        Returns the parts' programs."""
+        def part(i, *rows):
+            prog = program(i, rows[0].shape[0])
+            prog.load(rows)
+            prog()
+            if self.async_fetch:
+                prog.start_fetch()
+            return prog
+        return pb.sharded(part, self.mesh, *reqs, gather=False)
 
     def dispatch(self):
         """Queue this event's device work (it does not wait for results).
         The request buffers are fully consumed here."""
-        kind, sz, B = self.kind, self.sz, self.B
-        nn = sz * sz
+        kind, sz = self.kind, self.sz
         if kind in (KIND_NODE, KIND_PU):
-            top = self._up(self.req_top[:, :1 + 2 * sz])
-            left = self._up(self.req_left[:, :2 * sz])
-            flags = self._up(self.req_flags.astype(bool))
-            orig = self._up(self.req_orig[:, :nn].reshape(B, sz, sz))
+            reqs = [self.req_top[:, :1 + 2 * sz], self.req_left[:, :2 * sz],
+                    self.req_flags, self.req_orig[:, :sz * sz]]
         if kind == KIND_NODE:
+            if self.node_rates:
+                reqs += [self.req_state, self.req_ctxs, self.req_meta]
             with self.timer.phase(f"device_math_node{sz}"):
-                if self.node_rates:
-                    self._out = pb.sharded(
-                        functools.partial(_node_step, sz, self.qpd6),
-                        self.mesh, top, left, flags, orig,
-                        self._up(self.req_state), self._up(self.req_ctxs),
-                        self._up(self.req_meta))
-                else:
-                    q1, r1, s1 = cu_eval.eval_2nx2n(sz, self.qpd6, top, left,
-                                                    flags, orig)
-                    q4, r4, s4 = cu_eval.eval_tusplit(sz, self.qpd6, top,
-                                                      left, flags, orig)
-                    self._out = (q1, r1, s1, q4, r4, s4, None, None)
+                self.progs = self._replay(
+                    lambda i, k: _node_program(sz, self.qpd6, k,
+                                               self.node_rates, self.devs[i],
+                                               (self.slot, i)), reqs)
         elif kind == KIND_PU:
             with self.timer.phase("device_math_pu"):
-                self._out = pb.sharded(functools.partial(_pu_step, self.qpd6),
-                                       self.mesh, top, left, flags, orig)
+                self.progs = self._replay(
+                    lambda i, k: _pu_program(self.qpd6, k, self.devs[i],
+                                             (self.slot, i)), reqs)
         else:   # KIND_NODE_FETCH / KIND_PU_FETCH
             sel = self.req_fetch.copy()
-            qs, rs = self.pend
             with self.timer.phase("winner_fetch"):
                 if (sel == -1).any():
-                    self._out = ("full", sel, qs + rs)
+                    self._out = ("full", sel, ())
                 elif (sel >= 0).any():
-                    self._out = ("winner", sel, _gather_winners(
-                        qs, rs, self._up(sel)))
+                    self._out = ("winner", sel, self._replay(
+                        lambda i, k: _gather_program(self.progs[i]), [sel]))
                 else:
                     self._out = ("none", sel, ())
+
+    def _host(self, progs):
+        """the programs' fetched outputs on the host, each part's rows in
+        mesh order."""
+        parts = []
+        for p in progs:
+            host = p.fetched()
+            if self.verify:
+                _check_transfer([p.out[i] for i in p.fetch], host)
+            parts.append(host)
+        return [np.concatenate(a) for a in zip(*parts)]
 
     def complete(self):
         """Copy the dispatched results to the host, write them into the
@@ -277,46 +392,44 @@ class _Run:
         kind, sz, B = self.kind, self.sz, self.B
         nn = sz * sz
         if kind == KIND_NODE:
-            q1, r1, s1, q4, r4, s4, rates2, rates3 = self._out
             with self.timer.phase("writeback"):
+                host = self._host(self.progs)
                 if self.node_rates:
-                    h2, h3, hs1, hs4 = _get((rates2, rates3, s1, s4),
-                                            self.verify)
+                    h2, h3, hs1, hs4 = host
                     self.res_rates2[:] = h2.reshape(-1)
                     self.res_rates3[:] = h3.reshape(-1)
                 else:
                     self.res_rates2[:] = -1
                     self.res_rates3[:] = -1
-                    hs1, hs4 = _get((s1, s4), self.verify)
+                    hs1, hs4 = host
                 self.res_sse[:] = hs1.reshape(-1)
                 self.res_sse4[:] = hs4.reshape(-1)
-            self.pend = ((q1, q4), (r1, r4))
         elif kind == KIND_PU:
-            q1, r1, s1, rates = self._out
             with self.timer.phase("writeback"):
-                hs1, hr = _get((s1, rates), self.verify)
+                hs1, hr = self._host(self.progs)
                 self.res_sse[:] = hs1.reshape(-1)
                 self.res_rates[:] = hr.reshape(-1)
-            self.pend = ((q1,), (r1,))
         else:   # fetch events; K1's int16 quant widens into the int32 buffers
-            mode, sel, arrs = self._out
+            mode, sel, gathers = self._out
             quant = (self.res_quant, self.res_quant4)
             recon = (self.res_recon, self.res_recon4)
             with self.timer.phase("winner_fetch"):
                 if mode == "full":
-                    host = _get(arrs, self.verify)
+                    host = [np.concatenate(a) for a in zip(*(
+                        _get(sum(_candidates(p), ()), self.verify)
+                        for p in self.progs))]
                     nl = len(host) // 2
                     for layout in range(nl):
                         quant[layout][:B * MODES * nn] = host[layout].reshape(-1)
                         recon[layout][:B * MODES * nn] = host[nl + layout].reshape(-1)
                 elif mode == "winner":
-                    wq, wr = _get(arrs, self.verify)
+                    wq, wr = self._host(gathers)
                     for i in np.nonzero(sel >= 0)[0]:
                         layout, pm = divmod(int(sel[i]), MODES)
                         off = (i * MODES + pm) * nn
                         quant[layout][off:off + nn] = wq[i]
                         recon[layout][off:off + nn] = wr[i]
-            self.pend = None
+            self.progs = ()
         self._out = None
         self.lib.hevce_batch_supply(self.handle)
 
@@ -364,11 +477,15 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     lands in writeback and winner_fetch). HEVCE_TRACE=1 prints the
     breakdown to stderr on return.
     mesh: a sequence of devices (parallel/batch.make_mesh); every node and
-    PU step splits its batch over them, and the results gather on the
-    first. A mesh turns node_rates on, and the batch must be a multiple of
-    its size; device is then not used.
+    PU step splits its batch over them, each part replaying the program of
+    its device and batch. A mesh turns node_rates on, and the batch must be
+    a multiple of its size; device is then not used.
     device: None runs on the card (and raises without CUDA); "cpu" runs
     every kernel's plain version.
+    Every event replays its program (module docstring): the first event of
+    a key builds it (on the card a warm-up step and a capture, which raises
+    if it fails). HEVCE_ASYNC_FETCH=1 starts each event's copies to the host
+    when it is dispatched; HEVCE_VERIFY_TRANSFERS=1 checks them.
     """
     if mesh is not None:
         mesh = pb.make_mesh(mesh)
@@ -382,6 +499,7 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     if pipeline is None:
         pipeline = os.environ.get("HEVCE_PIPELINE", "0") == "1"
     verify = os.environ.get("HEVCE_VERIFY_TRANSFERS", "0") == "1"
+    async_fetch = os.environ.get("HEVCE_ASYNC_FETCH", "0") == "1"
     trace_env = timer is None and os.environ.get("HEVCE_TRACE", "0") == "1"
     timer = timer if timer is not None else PhaseTimer()
     images = [native._clip_dims(im) for im in images]
@@ -400,7 +518,8 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
         with torch.no_grad():
             for part in parts:
                 runs.append(_Run(lib, part, qpd6, node_rates, dev, verify,
-                                 timer, mesh))
+                                 timer, mesh, slot=len(runs),
+                                 async_fetch=async_fetch))
             live = runs
             for r in live:
                 if r.next() != KIND_DONE:

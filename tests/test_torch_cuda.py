@@ -25,7 +25,7 @@ from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.tools import (bench_fused, bench_k2, cuda_probe,
                                    profile_front)
-from hevce_tpu_torch.utils import timing
+from hevce_tpu_torch.utils import graphs, timing
 from hevce_tpu_torch.utils.imageio import write_pgm
 from hevce_tpu_torch.utils.tracing import PhaseTimer, device_trace
 
@@ -41,6 +41,20 @@ def cuda_device():
         pytest.skip("needs a CUDA device: K1, K2 and P1-P3 are CUDA kernels "
                     "with no CPU mode")
     return torch.device("cuda")
+
+
+# K1 and K2 launches of one step of each kind of event program: what its
+# eager warm-up step launched when it was built
+WARMUP = {"node": (5, 0), "node_rates": (5, 1), "pu": (1, 1), "gather": (0, 0),
+          "eval_2nx2n": (1, 0), "eval_tusplit": (4, 0)}
+
+
+def _warmups(since):
+    """(K1, K2) launches of the warm-up steps of the programs captured
+    since graphs.CAPTURED[since]."""
+    steps = graphs.CAPTURED[since:]
+    return (sum(WARMUP[s.kind][0] for s in steps),
+            sum(WARMUP[s.kind][1] for s in steps))
 
 
 def _inputs(sz, M, qpd6, lanes=37):
@@ -269,13 +283,15 @@ def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
     rng = np.random.default_rng(7)
     imgs = [rng.integers(0, 256, (32, 64)).astype(np.uint8) for _ in range(2)]
     k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+    since = len(graphs.CAPTURED)
     streams, rcons = lockstep.encode_batch(imgs, 2, node_rates=node_rates,
                                            pipeline=pipeline,
                                            device=cuda_device)
     runs = 2 if pipeline else 1
     node, pu = 21 * 2 * runs, 64 * 2 * runs          # two CTUs per image
-    assert fused_eval.LAUNCHES - k1 == 5 * node + pu
-    assert cabac_scan.LAUNCHES - k2 == pu + (node if node_rates else 0)
+    w1, w2 = _warmups(since)          # the programs this call built
+    assert fused_eval.LAUNCHES - k1 == 5 * node + pu + w1
+    assert cabac_scan.LAUNCHES - k2 == pu + (node if node_rates else 0) + w2
     for im, s, r in zip(imgs, streams, rcons):
         s_ref, r_ref = native.encode_image_native(im, 2)
         assert s == s_ref
@@ -288,9 +304,11 @@ def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
 def test_spec_encoder_on_card_equals_golden(cuda_device):
     g = np.load(ROOT / "tests" / "data" / "golden_images.npz")
     k1 = fused_eval.LAUNCHES
+    since = len(graphs.CAPTURED)
     stream, rcon = encoder.encode_image(g["img_2"], int(g["qpd6_2"]),
                                         device=cuda_device)
-    assert fused_eval.LAUNCHES - k1 == 169            # one CTU
+    # one CTU, and a warm-up step for each program this call built
+    assert fused_eval.LAUNCHES - k1 == 169 + _warmups(since)[0]
     assert stream == bytes(g["stream_2"])
     assert np.array_equal(rcon, g["rcon_2"])
 
@@ -306,6 +324,230 @@ def test_device_step_on_card_equals_cpu(cuda_device, sz, n):
     for a, b, c in zip(card, mesh, cpu):
         assert a.is_cuda and b.is_cuda
         assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)
+
+
+# ------------------------------------------------ the lockstep event programs
+
+def _event_arrays(sz, B, seed, rates):
+    """a node (sz > 4) or PU event's request rows as the engine lays them
+    out (int32; flags 0/1) and, with rates, live coder forks after random
+    bins (state7, ctxs, meta)."""
+    from hevce_tpu_torch.bitstream import cabac as cb
+
+    rng = np.random.default_rng(seed)
+    arrays = [rng.integers(0, 256, (B, 1 + 2 * sz)),
+              rng.integers(0, 256, (B, 2 * sz)),
+              (rng.random((B, 4)) < 0.6), rng.integers(0, 256, (B, sz, sz))]
+    if rates:
+        state, ctxs = [], []
+        for _ in range(B):
+            enc, c = cb.CabacEncoder(), cb.new_context_set(2)
+            for _ in range(int(rng.integers(0, 300))):
+                if rng.random() < 0.7:
+                    enc.encode_bin(c, int(rng.integers(0, 142)),
+                                   int(rng.integers(0, 2)))
+                else:
+                    enc.encode_bypass(int(rng.integers(0, 256)),
+                                      int(rng.integers(1, 9)))
+            state.append([enc.range, enc.low, enc.nbits, enc.outstanding,
+                          enc.bufbyte, enc.zrun, len(enc.buf)])
+            ctxs.append(np.frombuffer(bytes(c), np.uint8))
+        arrays += [np.array(state), np.stack(ctxs),
+                   np.stack([rng.integers(0, 35, B), rng.integers(0, 35, B),
+                             rng.integers(0, 2, B), rng.integers(0, 2, B)],
+                            1)]
+    return [np.asarray(a).astype(np.int32) for a in arrays]
+
+
+def _plain_event(sz, qpd6, rates, arrays, dev):
+    """the plain step of an event on dev (flags as bool)."""
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    t[2] = t[2] != 0
+    with torch.no_grad():
+        if sz == 4:
+            return lockstep._pu_step(qpd6, *t)
+        if rates:
+            return lockstep._node_step(sz, qpd6, *t)
+        return pb.device_step(sz, qpd6, *t)
+
+
+def _replayed_event(sz, qpd6, rates, arrays, sel, dev, slot):
+    """an event's program and its winner gather on dev: (outputs, gathered
+    rows) as host arrays, and the two programs."""
+    B = arrays[0].shape[0]
+    prog = (lockstep._pu_program(qpd6, B, dev, slot) if sz == 4 else
+            lockstep._node_program(sz, qpd6, B, rates, dev, slot))
+    with torch.no_grad():
+        prog.load(arrays)
+        out = [t.cpu().numpy() for t in prog()]
+        gather = lockstep._gather_program(prog)
+        gather.load([sel])
+        rows = [t.cpu().numpy() for t in gather()]
+    return out, rows, prog, gather
+
+
+EVENTS = [(sz, rates) for sz in (8, 16, 32) for rates in (False, True)] + [
+    (4, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpd6", [0, 2, 4])
+def test_event_programs_replay_their_plain_steps(cuda_device, qpd6):
+    """every node (sz 8 / 16 / 32, rates on and off) and PU program, with
+    its winner gather, replayed on the card for two events with different
+    inputs: byte for byte the plain step on the card and the same program
+    on the CPU (tolerance 0)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    for sz, rates in EVENTS:
+        for event in range(2):
+            arrays = _event_arrays(sz, 3, 100 * sz + 10 * event + qpd6, rates)
+            layouts = 1 if sz == 4 else 2
+            sel = np.array([3, 35 * layouts - 1, -1 - event], np.int32)
+            got, rows, prog, gather = _replayed_event(
+                sz, qpd6, rates, arrays, sel, dev, ("test", 0))
+            assert prog.run.graph is not None
+            assert gather.run.graph is not None
+            on_cpu, cpu_rows, _, _ = _replayed_event(
+                sz, qpd6, rates, arrays, sel, cpu, ("test", 0))
+            plain = _plain_event(sz, qpd6, rates, arrays, dev)
+            qs, rs = lockstep._candidates(prog)
+            want_rows = lockstep._gather_winners(
+                qs, rs, torch.from_numpy(sel).to(dev))
+            for g, c, p in zip(got, on_cpu, plain):
+                assert g.tobytes() == c.tobytes() == p.cpu().numpy().tobytes(
+                ), (sz, rates, event)
+            for g, c, p in zip(rows, cpu_rows, want_rows):
+                assert g.tobytes() == c.tobytes() == p.cpu().numpy().tobytes(
+                ), (sz, rates, event)
+
+
+@pytest.mark.cuda
+def test_lockstep_counts_hold_the_kernels_the_card_ran(cuda_device):
+    """once its programs are built, a one-CTU lockstep call with node rates
+    replays them only: K1 and K2 count 169 and 85 launches, and a profiled
+    call holds them all (complete)."""
+    rng = np.random.default_rng(21)
+    imgs = [rng.integers(0, 256, (32, 32)).astype(np.uint8)
+            for _ in range(3)]                      # a batch of its own
+
+    def encode():
+        return lockstep.encode_batch(imgs, 2, node_rates=True,
+                                     device=cuda_device)
+    encode()
+    since = len(graphs.CAPTURED)
+    k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
+    streams, _ = encode()
+    assert len(graphs.CAPTURED) == since            # replays only
+    assert (fused_eval.LAUNCHES - k1, cabac_scan.LAUNCHES - k2) == (169, 85)
+    kernels, complete = timing.card_kernels(encode)
+    card = {tag: sum(n for k, _, n in kernels if tag in k)
+            for tag in ("k1_kernel", "k2_kernel")}
+    assert complete and card == {"k1_kernel": 169, "k2_kernel": 85}
+    assert streams == [native.encode_image_native(im, 2)[0] for im in imgs]
+
+
+@pytest.mark.cuda
+def test_lockstep_pipelined_halves_of_nine(cuda_device):
+    """pipeline=True at B=18: two runs of 9, each replaying the programs of
+    its own slot; the streams are the native engine's."""
+    rng = np.random.default_rng(22)
+    imgs = [rng.integers(0, 256, (32, 32)).astype(np.uint8)
+            for _ in range(18)]
+    streams, rcons = lockstep.encode_batch(imgs, 2, pipeline=True,
+                                           device=cuda_device)
+    for im, s, r in zip(imgs, streams, rcons):
+        s_ref, r_ref = native.encode_image_native(im, 2)
+        assert s == s_ref and np.array_equal(r, r_ref)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    halves = [lockstep._pu_program(2, 9, dev, (run, 0)) for run in (0, 1)]
+    assert halves[0] is not halves[1]
+    assert all(p.run.graph is not None for p in halves)
+
+
+@pytest.mark.cuda
+def test_lockstep_mesh_on_one_card(cuda_device):
+    """a mesh (cuda:0, cuda:0): each part replays the programs of its own
+    slot; the streams are the native engine's."""
+    rng = np.random.default_rng(23)
+    imgs = [rng.integers(0, 256, (32, 32)).astype(np.uint8)
+            for _ in range(4)]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    streams, rcons = lockstep.encode_batch(imgs, 3, mesh=(dev, dev))
+    for im, s, r in zip(imgs, streams, rcons):
+        s_ref, r_ref = native.encode_image_native(im, 3)
+        assert s == s_ref and np.array_equal(r, r_ref)
+    parts = [lockstep._node_program(32, 3, 2, True, dev, (0, i))
+             for i in (0, 1)]
+    assert parts[0] is not parts[1]
+    assert all(p.run.graph is not None for p in parts)
+
+
+@pytest.mark.cuda
+def test_spec_encoder_and_device_step_replay_programs(cuda_device):
+    """a second spec encode and a second device step build nothing: every
+    eval replays its program; the device step returns fresh memory equal to
+    the CPU's."""
+    from hevce_tpu_torch.models import cu_eval
+
+    g = np.load(ROOT / "tests" / "data" / "golden_images.npz")
+    img, q = g["img_3"], int(g["qpd6_3"])
+    first = encoder.encode_image(img, q, device=cuda_device)
+    since, k1 = len(graphs.CAPTURED), fused_eval.LAUNCHES
+    again = encoder.encode_image(img, q, device=cuda_device)
+    assert len(graphs.CAPTURED) == since and fused_eval.LAUNCHES - k1 == 169
+    assert first[0] == again[0] == bytes(g["stream_3"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert encoder._eval_program(cu_eval.eval_tusplit, 32, q,
+                                 dev).run.graph is not None
+    args = pb.random_node_batch(16, 3, seed=5)
+    card = pb.device_step_fn(16, 2)(*(torch.from_numpy(a).to(dev)
+                                      for a in args))
+    since = len(graphs.CAPTURED)
+    again = pb.device_step_fn(16, 2)(*(torch.from_numpy(a).to(dev)
+                                       for a in args))
+    assert len(graphs.CAPTURED) == since
+    prog = lockstep._node_program(16, 2, 3, False, dev, (0, 0))
+    held = {t.untyped_storage().data_ptr() for t in prog.out}
+    cpu = pb.device_step_fn(16, 2)(*args)
+    for a, b, c in zip(card, again, cpu):
+        assert a.untyped_storage().data_ptr() not in held
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+# run as a process of its own: a failed capture must not leave the test
+# process in a capture's state
+SYNC_IN_EVENT = """
+import sys
+import numpy as np
+from hevce_tpu_torch.parallel import lockstep
+
+step = lockstep._pu_step
+
+def synced(*args):
+    out = step(*args)
+    out[3].sum().item()                 # a host sync inside the step
+    return out
+
+lockstep._pu_step = synced
+img = np.zeros((32, 32), np.uint8)
+try:
+    lockstep.encode_batch([img], 2, device="cuda")
+except RuntimeError as e:
+    print("capture raised:", str(e)[:200])
+    sys.exit(0 if lockstep._pu_program.cache_info().currsize == 0 else 4)
+sys.exit(3)
+"""
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_an_event_step_fails_capture(cuda_device):
+    """a PU step that waits for the card cannot be captured: encode_batch
+    raises (and caches no PU program) instead of running it eagerly."""
+    r = subprocess.run([sys.executable, "-c", SYNC_IN_EVENT], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "capture raised" in r.stdout
 
 
 # ------------------------------------------------------------ probes P1-P3
@@ -515,7 +757,7 @@ def test_profiler_sessions_tool_on_card(cuda_device):
 GRAPH_SESSIONS = """
 import torch
 from hevce_tpu_torch.ops import probes
-from hevce_tpu_torch.utils import timing
+from hevce_tpu_torch.utils import graphs, timing
 
 x = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
 step = lambda: probes.add_one(x)
