@@ -3,9 +3,10 @@
 
 Phases, each printed as one JSON line:
 
-  build     compile the native host library (g++), kernels K1 and K2 and
-            the probe kernels P1-P3 (nvcc) from the sources in this
-            checkout, all at once; seconds for each, ptxas's report
+  build     compile the native host library (g++), kernels K1 and K2, the
+            probe kernels P1-P3 and the fused node kernels X1-X3 (nvcc)
+            from the sources in this checkout, all at once; seconds for
+            each, ptxas's report
             (registers and spills of every instantiation), and the IMMA
             (int8 tensor-core) instructions in each kernel's SASS (P2, P3
             and K1's sz 8, 16 and 32 instantiations must have some).
@@ -55,9 +56,23 @@ Phases, each printed as one JSON line:
             step is a CUDA graph replayed per front. A first run builds the
             two shapes' runners (an eager warm-up step and a capture each);
             the second is timed. K1 must launch exactly 169 times per front
-            step (and per warm-up step), and every stream must decode,
-            through the independent native decoder, to the recon returned
-            with it.
+            step (and per warm-up step), X1 148, X2 21 and X3 106 times,
+            and every stream must decode, through the independent native
+            decoder, to the recon returned with it.
+  xnode     the fused node kernels X1-X3 (ops/fused_node, csrc/
+            fused_node.cu: X1 intra prediction with its borders, X2 the RMD
+            preselection, X3 candidate rate and RD cost; they stand for
+            XLA's fusions of the JAX front step) against their plain
+            versions on the card, tolerance 0: at every call of a real RMD
+            and a real dense front step (288 lanes, front 30 of the slice
+            phase's 768x512 batch, qpd6 0-4; the calls per step counted),
+            at the lockstep path's 18-row and the spec path's one-row calls
+            (X1, qpd6 0-4), and in adversarial cases (every flag
+            combination, flat and 0 / 255 borders, SATD ties across the
+            K-th place, all-zero blocks, levels at K1's int16 extremes,
+            SSEs at the RD cost's saturation edges). Per kernel the card
+            ms, call ms and plain ms of one RMD and one dense front step's
+            calls (X1 also per lockstep and spec CTU) beside the bound.
   lockstep  the bit-exact lockstep engine, as a user calls it:
             encode_batch on 18 synthetic 64x96 images (6 CTUs each,
             qpd6=2), with node_rates off, on, and off with pipeline=True
@@ -103,7 +118,9 @@ Phases, each printed as one JSON line:
             records with the recon, and dense records. Then the capture
             cost of the main path's three runners (the RMD keys of both
             shapes, the dense key; eager warm-up step, capture with
-            instantiate, graph nodes, pool memory) and, at the main path's
+            instantiate, graph nodes, pool memory; a step of more than
+            10,845 graph nodes fails, and each key's K1 and X1-X3 launches
+            a replay are held to the step's) and, at the main path's
             288 lanes, per front step: the replay ms (CUDA events over a
             whole slice of replays), the eager step's wall ms on the same
             buffers, and a profiled pair of replayed steps (card busy share,
@@ -147,10 +164,11 @@ Phases, each printed as one JSON line:
             bit-exact against the native engine, the fast-mode mesh encode
             decode-verified. K1 and K2 launch counts there.
 
-On the fast paths every K1 count adds one step for each slice runner the
-run builds (its eager warm-up step on the card; runners_built()), and on
-the lockstep, spec and mesh paths one step for each event program built
-(programs_built(), warmup_launches()).
+On the fast paths every K1 and X1-X3 count adds one step for each slice
+runner the run builds (its eager warm-up step on the card;
+runners_built()), and on the lockstep, spec and mesh paths one step for
+each event program built (programs_built(), warmup_launches()); there X1
+launches once before each K1 launch, and X2 and X3 never.
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
@@ -254,17 +272,32 @@ def captured():
 def warmup_launches(since):
     """(K1, K2) launches of the warm-up steps of the programs built since
     `since`; fails unless every one's replays count the launches its kind
-    makes (PROGRAM_LAUNCHES)."""
+    makes (PROGRAM_LAUNCHES, and an X1 launch before each K1 launch, no X2
+    or X3: the event programs run cu_eval's evaluations, not the fast
+    mode's node functions)."""
     from hevce_tpu_torch.utils import graphs
 
     for s in graphs.CAPTURED[since:]:
-        if s.kind != "front" and (s.launches["k1"], s.launches["k2"]) != \
-                PROGRAM_LAUNCHES[s.kind]:
+        if s.kind != "front" and (
+                (s.launches["k1"], s.launches["k2"]) !=
+                PROGRAM_LAUNCHES[s.kind] or
+                (s.launches["x1"], s.launches["x2"], s.launches["x3"]) !=
+                (s.launches["k1"], 0, 0)):
             fail(f"a {s.kind} program counts {s.launches} launches a "
-                 f"replay, expected {PROGRAM_LAUNCHES[s.kind]}")
+                 f"replay, expected {PROGRAM_LAUNCHES[s.kind]} and as "
+                 f"many X1 as K1")
     built = programs_built(since)
     return tuple(sum(n * PROGRAM_LAUNCHES[k][i] for k, n in built.items())
                  for i in (0, 1))
+
+
+def x_only_x1(where):
+    """fails unless, since reset_launches(), X1 launched once for each K1
+    launch and X2 and X3 never (the lockstep and spec paths evaluate
+    candidates through cu_eval only)."""
+    got = port_launches()
+    if (got["x1"], got["x2"], got["x3"]) != (got["k1"], 0, 0):
+        fail(f"{where}: launches {got}, expected X1 = K1 and no X2 / X3")
 
 
 def fail(msg):
@@ -275,7 +308,7 @@ def fail(msg):
 # ------------------------------------------------------------------- build
 
 def phase_build():
-    from hevce_tpu_torch.ops import cabac_scan, fused_eval, probes
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval, fused_node, probes
     from hevce_tpu_torch.runtime import native
 
     res, errs = {}, []
@@ -291,14 +324,16 @@ def phase_build():
 
     threads = [threading.Thread(target=run, args=a) for a in
                (("host", native.build), ("fused_eval", fused_eval.build),
-                ("cabac_scan", cabac_scan.build), ("probes", probes.build))]
+                ("cabac_scan", cabac_scan.build), ("probes", probes.build),
+                ("fused_node", fused_node.build))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errs:
         fail("build: " + " | ".join(errs))
-    ptxas = [ln.strip() for k in ("fused_eval", "cabac_scan", "probes")
+    ptxas = [ln.strip() for k in ("fused_eval", "cabac_scan", "probes",
+                                  "fused_node")
              for ln in res[k][1].splitlines()
              if any(w in ln for w in ("registers", "spill", "Compiling entry"))]
     # P2, P3 and K1's transform stages at sz >= 8 must issue int8
@@ -315,6 +350,7 @@ def phase_build():
     emit({"phase": "build", "host_lib_s": res["host"][0],
           "fused_eval_s": res["fused_eval"][0],
           "cabac_scan_s": res["cabac_scan"][0], "probes_s": res["probes"][0],
+          "fused_node_s": res["fused_node"][0],
           "ptxas": ptxas, "imma": imma, "k1_imma_by_sz": k1_imma})
 
 
@@ -531,6 +567,393 @@ def phase_k2(torch, dev, rng):
     return max_err, shapes
 
 
+# ------------------------------------------------------ fused node kernels
+
+# X1-X3 (ops/fused_node, csrc/fused_node.cu): the counterparts of XLA's
+# fusions of the JAX package's front step, not ports of Pallas kernels.
+# name: (wrapper, plain version, kernel, the JAX function it stands for)
+X_KERNELS = {
+    "x1": ("predict", "predict_plain", "x1_predict",
+           "hevce_tpu/models/cu_eval.py:64"),
+    "x2": ("preselect", "preselect_plain", "x2_preselect",
+           "hevce_tpu/models/wavefront.py:442"),
+    "x3": ("rate_cost", "rate_cost_plain", "x3_rate_cost",
+           "hevce_tpu/models/wavefront.py:130"),
+}
+X_REPLACES = {
+    "x1": "XLA's fusion of intra.build_borders + predict_all_modes "
+          "(hevce_tpu/ops/intra.py:32, :261) in cu_eval.eval_2nx2n and of "
+          "eval_tusplit's sub-TU borders and _select_pred (cu_eval.py:73, "
+          ":84)",
+    "x2": "XLA's fusion of _eval_node_rmd's front half (wavefront.py:442): "
+          "predict_all_modes, satd.block_satd (hevce_tpu/ops/satd.py:37), "
+          "the forced bias, _topk_mask and _compress_u8",
+    "x3": "XLA's fusion of _est_rate, _pmode_rate, _lastxy_rate "
+          "(wavefront.py:130, :156, :220) and rdcost.calc_rd_cost "
+          "(hevce_tpu/ops/rdcost.py:10)"}
+# launches per front step, by counter: K1; X1 the TU splits' 84 sub-TUs and
+# the NxN PUs (RMD: all 64; dense: PUs 1-3, 48, with the 21 nodes' 2Nx2N);
+# X2 one per RMD node; X3 two per node and one per NxN PU
+FRONT_LAUNCHES = {"k1": LAUNCHES_PER_FRONT, "x1": 148, "x2": 21, "x3": 106}
+DENSE_FRONT_LAUNCHES = {"k1": DENSE_LAUNCHES_PER_FRONT, "x1": 153, "x2": 0,
+                        "x3": 106}
+# X1 calls per CTU of the lockstep and spec paths, by (block size, sub-TU):
+# a PU event's 4x4 2Nx2N, a node event's 2Nx2N and its four sub-TUs (169,
+# one before each K1 launch)
+X1_PER_CTU = {(4, False): 64, (8, False): 16, (8, True): 64, (16, False): 4,
+              (16, True): 16, (32, False): 1, (32, True): 4}
+# their arithmetic, for the bounds (int32 operations on the kernels' own
+# formulation): a predicted pixel two multiply-adds, the rounding add and
+# the shift (6); X2 per mode and pixel also the residual, 2 log2(sz)
+# butterfly adds, |.| and the sum, and 35 x 35 rank comparisons a row; X3
+# per level |q|, the rate's select and its sum, the significance test, the
+# scan-index max and the CG bit (8), and ~40 a candidate
+X_OPS_PER_PX = 6
+X3_OPS_PER_COEF = 8
+# graph nodes a captured front step may hold: a quarter of the 43,381 of the
+# RMD step before X1-X3 (its eager chains' small kernels)
+MAX_NODES_PER_STEP = 43381 // 4
+
+
+def port_launches():
+    """every port kernel's launch count (utils/graphs.COUNTERS)."""
+    from hevce_tpu_torch.utils import graphs
+
+    return {k: m.LAUNCHES for k, m in graphs.COUNTERS.items()}
+
+
+def reset_launches():
+    from hevce_tpu_torch.utils import graphs
+
+    for m in graphs.COUNTERS.values():
+        m.LAUNCHES = 0
+
+
+def check_fronts(where, per_step, steps):
+    """fails unless K1 and X1-X3 launched per_step times each of `steps`
+    front steps since reset_launches(). Returns the counts."""
+    got = port_launches()
+    got = {k: got[k] for k in per_step}
+    want = {k: n * steps for k, n in per_step.items()}
+    if got != want:
+        fail(f"{where}: launches {got}, expected {want} ({steps} front "
+             f"steps, warm-up steps included, of {per_step})")
+    return got
+
+
+def front_inputs(torch, dev, imgs, d=30):
+    """front d of the batch's 768x512 grid at 288 lanes: (R, C, d, W, PME,
+    the originals of front d, ctx and sig prices), its three-column window
+    and originals cut from the images themselves."""
+    from hevce_tpu_torch.models import wavefront as wf
+
+    yp, xp = imgs[0].shape
+    R, C = yp // 32, xp // 32
+    O = torch.from_numpy(wf._orig_tiles_raster(imgs, yp, xp)).to(dev)
+    rr = torch.arange(R, device=dev)
+    tiles = lambda back: O[:, rr, (d - back - 2 * rr).clamp(0, C - 1)]
+    W = torch.stack([tiles(3), tiles(2), tiles(1)], 2)
+    PME = torch.full((len(imgs), R, 8), wf.DC, dtype=torch.int32, device=dev)
+    cv = torch.full((len(imgs) * R,), wf.CTX_BIT, dtype=torch.int32,
+                    device=dev)
+    return R, C, d, W, PME, tiles(0), cv, torch.full_like(cv, wf.SIG_ZERO)
+
+
+def x_calls(torch, run):
+    """every call of the fused node wrappers that run() makes, its tensors
+    copied with their strides: {"x1": [(args, kwargs)], ...}."""
+    from hevce_tpu_torch.ops import fused_node
+
+    def keep(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                   device=a.device).copy_(a)
+
+    calls = {x: [] for x in X_KERNELS}
+    real = {x: getattr(fused_node, w) for x, (w, _, _, _) in
+            X_KERNELS.items()}
+
+    def taker(x):
+        def call(*a, **kw):
+            calls[x].append(([keep(v) for v in a],
+                             {k: keep(v) for k, v in kw.items()}))
+            return real[x](*a, **kw)
+        return call
+
+    for x, (w, _, _, _) in X_KERNELS.items():
+        setattr(fused_node, w, taker(x))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for x, (w, _, _, _) in X_KERNELS.items():
+            setattr(fused_node, w, real[x])
+    return calls
+
+
+def x_compare(torch, x, args, kw, where):
+    """X kernel x on one call's inputs against its plain version on the same
+    inputs (on the card), tolerance 0: fails on any difference, else
+    returns the largest |error| (0)."""
+    from hevce_tpu_torch.ops import fused_node
+
+    w, p, _, _ = X_KERNELS[x]
+    got = getattr(fused_node, w)(*args, **kw)
+    torch.cuda.synchronize()
+    want = getattr(fused_node, p)(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0
+    for g, v in zip(got, want):
+        if g.dtype != v.dtype or g.shape != v.shape:
+            fail(f"{x} {where}: {g.dtype}{tuple(g.shape)} vs "
+                 f"{v.dtype}{tuple(v.shape)}")
+        err = int((g.to(torch.int64) - v.to(torch.int64)).abs().max()) \
+            if g.numel() else 0
+        if err:
+            fail(f"{x} differs from its plain version {where}: max |err| "
+                 f"{err}; shapes {[tuple(getattr(a, 'shape', ())) for a in args]}"
+                 f" {kw}")
+        worst = max(worst, err)
+    return worst
+
+
+def x_border_reads(n, isub, flags):
+    """(context samples over all rows, canvas bytes a lane, flag bytes a
+    row) that the borders of an n x n block read: each piece only where its
+    flag lets it through (a masked half is substituted, never read). isub
+    None: the node's own borders from its context; 0-3: sub-TU isub of the
+    TU split, whose flags follow the reference's sub-block tables and whose
+    pieces past the context lie in each lane's canvas."""
+    g = flags.reshape(-1, 4).long().cpu()
+    bll, blb, baa, bar = g.unbind(1)
+    if isub is None or isub == 0:
+        if isub == 0:
+            blb, bar = bll, baa
+        ctx = (bll & baa) + n * (bll + blb + baa + bar)
+        return int(ctx.sum()), 0, 2 if isub == 0 else 4
+    if isub == 1:             # left from the canvas, bll = 1, blb = 0
+        return int((baa + n * (baa + bar)).sum()), n, 2
+    if isub == 2:             # top from the canvas, baa = bar = 1
+        return int((bll + n * (bll + blb)).sum()), 2 * n, 2
+    return 0, 2 * n + 1, 0    # all from the canvas, the flags fixed
+
+
+def x_cost(x, args, kw):
+    """(bytes, int32 ops) one call of X kernel x must move and do: each
+    input read once where the call's data needs it (borders only where
+    their flags let them through, a sub-TU's canvas only where its borders
+    lie, modes only where given), each output written once."""
+    if x == "x1":
+        sz, top, left, flags = args[:4]
+        modes = args[4] if len(args) > 4 else kw.get("modes")
+        isub = args[6] if len(args) > 6 else kw.get("isub")
+        rows = top.numel() // top.shape[-1]
+        n = sz if isub is None else sz // 2
+        M = 35 if modes is None else modes.shape[-1]
+        ctx, canvas, fl = x_border_reads(n, isub, flags)
+        nbytes = ctx * top.element_size() + fl * rows + canvas * rows * M \
+            + (0 if modes is None else 4 * rows * M) + rows * M * n * n
+        return nbytes, rows * M * n * n * X_OPS_PER_PX
+    if x == "x2":
+        sz, top, left, flags, blk, _, _, K = args
+        rows, nn, K = blk.shape[0], sz * sz, min(K, 35)
+        ctx, _, fl = x_border_reads(sz, None, flags)
+        nbytes = (ctx * top.element_size() + fl * rows + rows * nn
+                  + 8 * rows + rows * K * nn + 4 * rows * K)
+        per_px = X_OPS_PER_PX + 3 + 2 * (sz.bit_length() - 1)
+        return nbytes, rows * (35 * nn * per_px + 35 * 35)
+    q = args[2]
+    modes = args[9] if len(args) > 9 else kw.get("modes")
+    cands = q.shape[0] * q.shape[1]
+    # levels; sse, cost and (where given) modes a candidate; ctxv, sigv,
+    # pml and pma a row
+    nbytes = 2 * q.numel() + 4 * cands * (2 if modes is None else 3) \
+        + 16 * q.shape[0]
+    return nbytes, q.numel() * X3_OPS_PER_COEF + 40 * cands
+
+
+def x_times(torch, x, calls, weights=None):
+    """card ms (CUDA events behind a spin kernel: the calls' kernels back to
+    back, the host's enqueue hidden), call ms (CUDA events, the enqueue
+    included) and plain ms (the plain version on the card, profiler) of the
+    calls given, each `weights[i]` times, and the bound of the same work.
+    (Profiler sessions over these eager calls lost 7 X launches each,
+    whatever their pad, so the card time does not come from them; the
+    graph phase's profiled replays give each X kernel's time a step.)"""
+    from hevce_tpu_torch.ops import fused_node
+    from hevce_tpu_torch.utils import timing
+
+    w, p, _, _ = X_KERNELS[x]
+    weights = weights or [1] * len(calls)
+    kern, plain = getattr(fused_node, w), getattr(fused_node, p)
+    run = lambda f: [f(*a, **kw) for (a, kw), n in zip(calls, weights)
+                     for _ in range(n)]
+    nbytes = ops = 0
+    for (a, kw), n in zip(calls, weights):
+        b, o = x_cost(x, a, kw)
+        nbytes, ops = nbytes + n * b, ops + n * o
+    b_ms, by = bound(nbytes, [(ops, INT32_OPS_PER_S)])
+    return {"ms": timing.busy_events_ms(lambda: run(kern), 5),
+            "call_ms": timing.cuda_ms(lambda: run(kern), 5),
+            "plain_ms": timing.card_ms(lambda: run(plain), 1),
+            "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "ops": ops,
+            "launches": sum(weights)}
+
+
+def x_adversarial(torch, dev, rng):
+    """the kernels' edge cases as calls [(x, args, kwargs, label)]: X1 on
+    every flag combination with flat and 0 / 255 borders (uint8 and int32
+    contexts, frac = 0 rows in every block); X2 with SATD ties across the
+    K-th place (flat borders), equal and planar / DC neighbour modes at K
+    1, 4, 12 and 35; X3 with all-zero blocks, levels at K1's int16
+    extremes and SSEs at the RD cost's saturation edges, at qpd6 0-4."""
+    import itertools
+
+    from hevce_tpu_torch.ops import constants as C
+
+    to = lambda a, dt=None: torch.from_numpy(
+        np.ascontiguousarray(a if dt is None else a.astype(dt))).to(dev)
+    fl16 = np.array(list(itertools.product([False, True], repeat=4)))
+    out = []
+    for sz in (4, 8, 16, 32):
+        rows = 32
+        top = rng.integers(0, 256, (rows, 1 + 2 * sz))
+        left = rng.integers(0, 256, (rows, 2 * sz))
+        top[0], left[0] = 77, 77
+        top[1], left[1] = 255, 0
+        top[2], left[2] = 0, 255
+        fl = to(fl16[np.arange(rows) % 16])
+        for dt in (np.uint8, np.int32):
+            out.append(("x1", [sz, to(top, dt), to(left, dt), fl], {},
+                        f"flags x borders, sz={sz} {np.dtype(dt).name}"))
+        if sz >= 8:
+            blk = rng.integers(0, 256, (rows, sz, sz))
+            blk[3] = 200
+            top[3], left[3] = 200, 200
+            pml = rng.integers(0, 35, rows)
+            pma = rng.integers(0, 35, rows)
+            pml[:4], pma[:4] = (7, 0, 1, 30), (7, 1, 0, 30)
+            for K in (1, 4, 12, 35):
+                out.append(("x2", [sz, to(top, np.uint8), to(left, np.uint8),
+                                   fl, to(blk, np.uint8),
+                                   to(pml, np.int32), to(pma, np.int32), K],
+                            {}, f"ties, sz={sz} K={K}"))
+    i32max = 2**31 - 1
+    for (sz, M, split, modes, hdr), qpd6 in itertools.product(
+            ((8, 12, False, True, 6), (32, 12, False, True, 6),
+             (16, 4, True, True, 9), (4, 35, False, False, 1),
+             (16, 35, True, False, 9)), range(5)):
+        rows, n = 6, sz // 2 if split else sz
+        shape = (rows, M) + ((4, n, n) if split else (n, n))
+        q = np.where(rng.random(shape) < 0.12,
+                     rng.integers(-40, 41, shape), 0)
+        q[0, 0], q[0, 1], q[0, 2] = 0, 32767, -32768
+        q[1, 0] = rng.choice([-32768, -32767, 32767], shape[2:])
+        lim = i32max // int(C.RDCOST_WEIGHT_DIST[qpd6])
+        sse = rng.integers(0, 255 * 255 * 1024, (rows, M))
+        sse.reshape(-1)[:5] = (lim - 1, lim, min(lim + 1, i32max), i32max,
+                               0)
+        cv = rng.integers(0, 4 << 15, rows)
+        cv[0] = 4 << 15
+        md = np.sort(rng.choice(35, (rows, M)), -1) if modes else None
+        out.append(("x3", [sz, qpd6, to(q, np.int16), to(sse, np.int32),
+                           to(cv, np.int32), to(cv[::-1], np.int32),
+                           to(rng.integers(0, 35, rows), np.int32),
+                           to(rng.integers(0, 35, rows), np.int32), hdr,
+                           None if md is None else to(md, np.int32), split],
+                    {}, f"extremes, sz={sz} M={M} split={split} "
+                        f"qpd6={qpd6}"))
+    return out
+
+
+def phase_xnode(torch, dev, rng, card, imgs):
+    """X1-X3 against their plain versions on the card (tolerance 0): at
+    every call of a real RMD and a real dense front step (288 lanes, front
+    30 of the slice phase's 768x512 batch, qpd6 0-4), at the lockstep
+    path's 18-row calls and the spec path's one-row calls (X1, through
+    eval_2nx2n and eval_tusplit on lockstep requests, qpd6 0-4), and in the
+    adversarial cases (x_adversarial). Then per kernel the card ms, call ms
+    and plain ms of one RMD front step's calls (and of one dense step's),
+    X1's per lockstep and per spec CTU, beside their bounds."""
+    from hevce_tpu_torch.models import cu_eval
+    from hevce_tpu_torch.models import wavefront as wf
+    from hevce_tpu_torch.tools.bench_k2 import lock_requests
+
+    land = [im for im in imgs if im.shape == imgs[0].shape][:BATCH]
+    R, C, d, W, PME, O, cv, sv = front_inputs(torch, dev, land)
+    err = dict.fromkeys(X_KERNELS, 0)
+    checked = dict.fromkeys(X_KERNELS, 0)
+
+    def held(calls, where):
+        for x, lst in calls.items():
+            for a, kw in lst:
+                err[x] = max(err[x], x_compare(torch, x, a, kw, where))
+                checked[x] += 1
+
+    steps = {}
+    for rmd, per in (((12, 4), FRONT_LAUNCHES), (None, DENSE_FRONT_LAUNCHES)):
+        for qpd6 in range(5):
+            calls = x_calls(torch, lambda: wf.front_core(
+                qpd6, R, rmd, W, PME, O, d, C, cv, sv))
+            n = {x: len(v) for x, v in calls.items()}
+            if n != {x: per[x] for x in X_KERNELS}:
+                fail(f"one front step (rmd={rmd}, qpd6={qpd6}) called the "
+                     f"fused node wrappers {n}, expected {per}")
+            held(calls, f"at a front step's calls (rmd={rmd}, qpd6={qpd6})")
+            if qpd6 == QPD6:
+                steps["rmd" if rmd else "dense"] = calls
+    lock, spec = [], []
+    for qpd6 in range(5):
+        for sz in (4, 8, 16, 32):
+            req = lock_requests(dev, rng, sz)
+            one = [t[0] for t in req]           # the spec's one-row call
+            for rows, args in ((lock, req), (spec, one)):
+                calls = x_calls(torch, lambda: (
+                    cu_eval.eval_2nx2n(sz, qpd6, *args),
+                    sz > 4 and cu_eval.eval_tusplit(sz, qpd6, *args)))
+                held(calls, f"at the {'spec' if rows is spec else 'lockstep'}"
+                            f" path's calls (sz={sz}, qpd6={qpd6})")
+                if qpd6 == QPD6:
+                    rows.extend(calls["x1"])
+    for x, a, kw, label in x_adversarial(torch, dev, rng):
+        err[x] = max(err[x], x_compare(torch, x, a, kw, f"({label})"))
+        checked[x] += 1
+
+    def per_ctu(calls):
+        """the weights of X1's distinct calls in one CTU (X1_PER_CTU)."""
+        key = lambda a: (a[0], len(a) > 6 and a[6] is not None)
+        return [X1_PER_CTU[key(a)]
+                // sum(1 for b, _ in calls if key(b) == key(a))
+                for a, _ in calls]
+
+    rows = {}
+    for x in X_KERNELS:
+        row = {"name": x, "step": x_times(torch, x, steps["rmd"][x])}
+        if steps["dense"][x]:
+            row["dense_step"] = x_times(torch, x, steps["dense"][x])
+        rows[x] = row
+    for key, calls in (("lockstep_ctu", lock), ("spec_ctu", spec)):
+        rows["x1"][key] = x_times(torch, "x1", calls, per_ctu(calls))
+    emit({"phase": "xnode", "card": card, "checked": checked,
+          "exact": True, "max_abs_err": err, "lanes": LANES,
+          "per_front": FRONT_LAUNCHES, "dense_per_front":
+          DENSE_FRONT_LAUNCHES, "x1_per_ctu": sum(X1_PER_CTU.values()),
+          "kernels": list(rows.values()),
+          "basis": "step: the calls of one RMD front step (front 30 of an "
+                   "18-image 768x512 batch, 288 lanes, qpd6 2), dense_step "
+                   "of one dense step; lockstep_ctu / spec_ctu X1's 169 "
+                   "calls of one CTU at 18 rows / one row (eval_2nx2n and "
+                   "eval_tusplit on lockstep requests). ms: card time "
+                   "(CUDA events behind a spin kernel), call_ms with the "
+                   "host's enqueue (CUDA events), plain_ms the plain "
+                   "version's card time (profiler); "
+                   "bound_ms the larger of bytes at 3.35 TB/s and int32 "
+                   "operations at 33.5 TOP/s"})
+    return err, rows
+
+
 # ------------------------------------------------------------------- slice
 
 def psnr(a, b):
@@ -540,7 +963,6 @@ def psnr(a, b):
 
 def phase_slice(torch, dev, rng, card):
     from hevce_tpu_torch.models import wavefront as wf
-    from hevce_tpu_torch.ops import fused_eval
     from hevce_tpu_torch.runtime import native
     from hevce_tpu_torch.utils.synth import kodak_shaped
     from hevce_tpu_torch.utils.tracing import PhaseTimer
@@ -568,19 +990,18 @@ def phase_slice(torch, dev, rng, card):
     runs = []
     for _ in range(2):
         timer = PhaseTimer()
-        fused_eval.LAUNCHES = 0
+        reset_launches()
         built0 = runners_built()
         t0 = time.perf_counter()
         streams, recons = wf.encode_many_fast(imgs, QPD6, batch=BATCH,
                                               timer=timer, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, built = fused_eval.LAUNCHES, runners_built() - built0
-        if launches != LAUNCHES_PER_FRONT * (fronts + built):
-            fail(f"K1 launched {launches} times on the main path, expected "
-                 f"{LAUNCHES_PER_FRONT} x ({fronts} fronts + {built} "
-                 f"warm-up steps)")
-        runs.append((wall, launches, built, streams))
+        built = runners_built() - built0
+        counts = check_fronts("the main path", FRONT_LAUNCHES,
+                              fronts + built)
+        launches = counts["k1"]
+        runs.append((wall, counts, built, streams))
     if runs[0][2] != len(shapes) or runs[1][2]:
         fail(f"the runs built {runs[0][2]} and {runs[1][2]} slice runners, "
              f"expected {len(shapes)} and 0")
@@ -597,9 +1018,10 @@ def phase_slice(torch, dev, rng, card):
     emit({"phase": "slice", "card": card, "images": len(imgs),
           "shapes": shapes,
           "qpd6": QPD6, "batch": BATCH, "fronts": fronts,
-          "k1_launches": launches, "wall_s": wall,
+          "k1_launches": launches, "launches": counts,
+          "launches_per_front": FRONT_LAUNCHES, "wall_s": wall,
           "mp_per_s": pixels / wall / 1e6,
-          "first_run": {"wall_s": runs[0][0], "k1_launches": runs[0][1],
+          "first_run": {"wall_s": runs[0][0], "launches": runs[0][1],
                         "runners_built": runs[0][2],
                         "mp_per_s": pixels / runs[0][0] / 1e6},
           "phases_s": dict(timer.totals),
@@ -609,7 +1031,7 @@ def phase_slice(torch, dev, rng, card):
           "bpp_mean": float(np.mean(bpp)), "decoded": len(streams),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "peak_note": "both runs, the captures included"})
-    return launches, imgs, streams, recons, pixels / wall / 1e6
+    return counts, imgs, streams, recons, pixels / wall / 1e6
 
 
 # ---------------------------------------------------------------- lockstep
@@ -745,8 +1167,7 @@ def phase_lockstep(torch, dev, rng, card):
     for node_rates, pipeline in LOCK_RUNS:
         halves = 2 if pipeline else 1
         timer = PhaseTimer()
-        fused_eval.LAUNCHES = 0
-        cabac_scan.LAUNCHES = 0
+        reset_launches()
         since = captured()
         t0 = time.perf_counter()
         streams, rcons = lockstep.encode_batch(
@@ -756,6 +1177,8 @@ def phase_lockstep(torch, dev, rng, card):
         wall = time.perf_counter() - t0
         k1, k2 = fused_eval.LAUNCHES, cabac_scan.LAUNCHES
         w1, w2 = warmup_launches(since)
+        x_only_x1(f"the lockstep path (node_rates={node_rates}, "
+                  f"pipeline={pipeline})")
         # events are counted per engine: each half runs the whole schedule
         node = sum(n for k, n in timer.counts.items()
                    if k.startswith("device_math_node"))
@@ -868,6 +1291,11 @@ def phase_profile(torch, dev, rng):
         ks, complete = timing.card_kernels(timed_steps)
         busy_us = sum(us for _, us, _ in ks)
         k1_us = sum(us for k, us, _ in ks if "k1_kernel" in k)
+        port = {x: {"ms_per_step": sum(us for k, us, _ in ks if key in k)
+                    / 2e3,
+                    "launches_per_step": sum(n for k, _, n in ks if key in k)
+                    / 2}
+                for x, (_, _, key, _) in X_KERNELS.items()}
         return ks, {"wall_ms_per_step": 1e3 * wall[-1] / 2,
                     "card_busy_ms_per_step": busy_us / 1e3 / 2,
                     "card_busy_share": busy_us / 1e6 / wall[-1],
@@ -875,7 +1303,7 @@ def phase_profile(torch, dev, rng):
                     "k1_launches_per_step": sum(
                         n for k, _, n in ks if "k1_kernel" in k) / 2,
                     "kernels_per_step": sum(n for _, _, n in ks) / 2,
-                    "complete": complete,
+                    "x_kernels": port, "complete": complete,
                     "lost_sessions": timing.LOST_SESSIONS - lost0}
 
     ks, rmd_step = profiled((12, 4))
@@ -925,23 +1353,13 @@ def phase_identity(dev):
 # ------------------------------------------------------------------- dense
 
 def k1_dense_calls(torch, dev, imgs):
-    """K1's inputs as one dense front step hands them over: front 30 of the
-    batch's 768x512 grid at 288 lanes, its three-column window and its
-    originals cut from the images themselves. Returns the [(sz, pred, blk)]
-    of every K1 call, taken at its wrapper."""
+    """K1's inputs as one dense front step hands them over (front_inputs:
+    front 30 of the batch's 768x512 grid at 288 lanes). Returns the [(sz,
+    pred, blk)] of every K1 call, taken at its wrapper."""
     from hevce_tpu_torch.models import wavefront as wf
     from hevce_tpu_torch.ops import fused_eval
 
-    yp, xp = imgs[0].shape
-    R, C, d = yp // 32, xp // 32, 30
-    O = torch.from_numpy(wf._orig_tiles_raster(imgs, yp, xp)).to(dev)
-    rr = torch.arange(R, device=dev)
-    tiles = lambda back: O[:, rr, (d - back - 2 * rr).clamp(0, C - 1)]
-    W = torch.stack([tiles(3), tiles(2), tiles(1)], 2)
-    PME = torch.full((len(imgs), R, 8), wf.DC, dtype=torch.int32, device=dev)
-    cv = torch.full((len(imgs) * R,), wf.CTX_BIT, dtype=torch.int32,
-                    device=dev)
-    sv = torch.full_like(cv, wf.SIG_ZERO)
+    R, C, d, W, PME, O, cv, sv = front_inputs(torch, dev, imgs)
     calls, k1 = [], fused_eval.pipeline_sse
 
     def taken(sz, q, pred, blk):
@@ -951,7 +1369,7 @@ def k1_dense_calls(torch, dev, imgs):
     fused_eval.pipeline_sse = taken
     try:
         with torch.no_grad():
-            wf.front_core(QPD6, R, None, W, PME, tiles(0), d, C, cv, sv)
+            wf.front_core(QPD6, R, None, W, PME, O, d, C, cv, sv)
     finally:
         fused_eval.pipeline_sse = k1
     return calls
@@ -963,7 +1381,6 @@ def phase_dense(torch, dev, card, imgs, shapes):
     one dense front step's own calls; K1's card ms per step from the
     kernels phase's rows at (sz, 35)."""
     from hevce_tpu_torch.models import wavefront as wf
-    from hevce_tpu_torch.ops import fused_eval
     from hevce_tpu_torch.runtime import native
     from hevce_tpu_torch.utils.tracing import PhaseTimer
 
@@ -979,18 +1396,17 @@ def phase_dense(torch, dev, card, imgs, shapes):
     runs = []
     for _ in range(2):
         timer = PhaseTimer()
-        fused_eval.LAUNCHES = 0
+        reset_launches()
         built0 = runners_built()
         t0 = time.perf_counter()
         streams, recons = wf.encode_batch_fast(land, QPD6, timer=timer,
                                                rmd=None, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, built = fused_eval.LAUNCHES, runners_built() - built0
-        if launches != DENSE_LAUNCHES_PER_FRONT * (fronts + built):
-            fail(f"K1 launched {launches} times on the dense path, expected "
-                 f"{DENSE_LAUNCHES_PER_FRONT} x ({fronts} fronts + {built} "
-                 f"warm-up steps)")
+        built = runners_built() - built0
+        counts = check_fronts("the dense path", DENSE_FRONT_LAUNCHES,
+                              fronts + built)
+        launches = counts["k1"]
         runs.append((wall, launches, built))
     if (runs[0][2], runs[1][2]) != (1, 0):
         fail(f"the dense runs built {runs[0][2]} and {runs[1][2]} runners, "
@@ -1025,15 +1441,16 @@ def phase_dense(torch, dev, card, imgs, shapes):
     rows = {(r["sz"], r["M"]): r for r in shapes}
     per_step = lambda key: sum(n * rows[k][key]
                                for k, n in DENSE_PER_FRONT.items())
-    out = {"launches": launches, "ms_per_front": per_step("ms"),
+    out = {"launches": launches, "x_launches": counts,
+           "ms_per_front": per_step("ms"),
            "bound_ms_per_front": per_step("bound_ms"),
            "tc_bound_ms_per_front": per_step("tc_bound_ms"),
            "plain_ms_per_front": per_step("plain_ms"), "max_abs_err": max_err}
     emit({"phase": "dense", "card": card, "images": len(land),
           "shape": list(land[0].shape), "qpd6": QPD6, "batch": BATCH,
           "lanes": LANES,
-          "fronts": fronts, "k1_launches": launches,
-          "k1_launches_per_front": launches / fronts, "wall_s": wall,
+          "fronts": fronts, "k1_launches": launches, "launches": counts,
+          "launches_per_front": DENSE_FRONT_LAUNCHES, "wall_s": wall,
           "first_run": {"wall_s": runs[0][0], "k1_launches": runs[0][1],
                         "runners_built": runs[0][2]},
           "wall_ms_per_front": 1e3 * wall / fronts,
@@ -1124,13 +1541,13 @@ def replayed_steps(torch, runner, per_step):
     slice of replays (CUDA events, the host's wall and its enqueue), the
     host's time of one replay call with the card idle, the eager step's
     wall ms at fronts 30 and 31 on the same buffers, and a profiled pair of
-    replayed steps (fronts 30, 31): card busy share, complete, lost
-    sessions. K1 must launch per_step times a replayed step."""
-    from hevce_tpu_torch.ops import fused_eval
+    replayed steps (fronts 30, 31): card busy share, each port kernel's
+    card ms and launches a step, complete, lost sessions. K1 and X1-X3
+    must launch per_step {counter: n} times a replayed step."""
     from hevce_tpu_torch.utils import timing
 
     torch.cuda.synchronize()
-    n0 = fused_eval.LAUNCHES
+    reset_launches()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
     t0 = time.perf_counter()
     e0.record()
@@ -1140,9 +1557,7 @@ def replayed_steps(torch, runner, per_step):
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    if fused_eval.LAUNCHES - n0 != per_step * runner.D:
-        fail(f"K1 counted {fused_eval.LAUNCHES - n0} launches over "
-             f"{runner.D} replayed steps, expected {per_step} a step")
+    check_fronts("the replayed steps", per_step, runner.D)
     # one replay's host call with the card idle: the launch's own cost
     launch = []
     for d in (30, 31):
@@ -1173,6 +1588,10 @@ def replayed_steps(torch, runner, per_step):
     ks, complete = timing.card_kernels(two_replays)
     busy_us = sum(us for _, us, _ in ks)
     k1 = sum(n for k, _, n in ks if "k1_kernel" in k)
+    port = {x: {"ms_per_step": sum(us for k, us, _ in ks if key in k) / 2e3,
+                "launches_per_step": sum(n for k, _, n in ks if key in k) / 2}
+            for x, key in (("k1", "k1_kernel"),
+                           *((x, v[2]) for x, v in X_KERNELS.items()))}
     return {"fronts": runner.D,
             "replay_ms_per_step": e0.elapsed_time(e1) / runner.D,
             "replay_wall_ms_per_step": 1e3 * wall_s / runner.D,
@@ -1184,6 +1603,7 @@ def replayed_steps(torch, runner, per_step):
                         "card_busy_share": busy_us / 1e6 / wall[-1],
                         "kernels_per_step": sum(n for _, _, n in ks) / 2,
                         "k1_launches_per_step": k1 / 2,
+                        "port_kernels": port,
                         "complete": complete,
                         "lost_sessions": timing.LOST_SESSIONS - lost0}}
 
@@ -1214,19 +1634,23 @@ def phase_graph(torch, dev, card, imgs, slice_mp_s):
     for (s, rmd), (runner, arrays) in keys.items():
         if runner.graph is None:
             fail(f"the runner of {s}, rmd={rmd} holds no graph")
+        per = FRONT_LAUNCHES if rmd else DENSE_FRONT_LAUNCHES
         rows.append({"shape": list(s), "B": runner.B, "R": runner.R,
                      "Cc": runner.Cc, "rmd": rmd,
-                     "k1_per_step": runner.k1_per_step,
+                     "launches_per_step": runner.launches,
                      "nodes": graph_nodes(runner.graph), **runner.stats,
                      "pool_gib": runner.stats["pool_bytes"] / 2**30})
+        if {k: runner.launches[k] for k in per} != per or \
+                runner.launches["k2"]:
+            fail(f"the runner of {s}, rmd={rmd} captured the launches "
+                 f"{runner.launches} a step, expected {per}")
+        if rows[-1]["nodes"] > MAX_NODES_PER_STEP:
+            fail(f"the runner of {s}, rmd={rmd} captured {rows[-1]['nodes']}"
+                 f" graph nodes a step, more than {MAX_NODES_PER_STEP}")
         if s == imgs[0].shape:
             runner.load(*(torch.from_numpy(a).to(dev) for a in arrays))
             steps["rmd" if rmd else "dense"] = replayed_steps(
-                torch, runner, runner.k1_per_step)
-    if [r["k1_per_step"] for r in rows if r["rmd"] is None] != [
-            DENSE_LAUNCHES_PER_FRONT] or {r["k1_per_step"] for r in rows
-                                          if r["rmd"]} != {LAUNCHES_PER_FRONT}:
-        fail(f"captured K1 launches per step: {rows}")
+                torch, runner, per)
     emit({"phase": "graph", "card": card, "compared": compared,
           "byte_identical": True, "compare_s": compare_s, "keys": rows,
           "lanes": LANES, "steps": steps,
@@ -1234,6 +1658,9 @@ def phase_graph(torch, dev, card, imgs, slice_mp_s):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "reserved_gib": torch.cuda.memory_reserved() / 2**30,
           "slice_mp_per_s": slice_mp_s,
+          "nodes_per_step": {("rmd" if r["rmd"] else "dense") + " "
+                             + "x".join(map(str, r["shape"])): r["nodes"]
+                             for r in rows},
           "basis": "warmup_s: a runner's eager warm-up step; capture_s "
                    "the capture of one front step; instantiate_s its "
                    "instantiation; nodes the graph's; pool_gib the memory "
@@ -1243,6 +1670,7 @@ def phase_graph(torch, dev, card, imgs, slice_mp_s):
                    "idle_launch_ms one call with the card idle); "
                    "eager_wall_ms_per_step the same step run eagerly on "
                    "the same buffers; peak_mem_gib over this phase"})
+    return steps
 
 
 # ----------------------------------------------------------------- surface
@@ -1251,7 +1679,6 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     """fetch_qc=True, HEVCE_ADAPT=post and encode_many_exact on the card,
     each against what it must equal."""
     from hevce_tpu_torch.models import wavefront as wf
-    from hevce_tpu_torch.ops import fused_eval
     from hevce_tpu_torch.runtime import native
     from hevce_tpu_torch.utils.tracing import PhaseTimer
 
@@ -1260,7 +1687,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     res = {"phase": "surface", "card": card, "qpd6": QPD6, "batch": BATCH}
 
     # full records: the slice phase's streams and (host-replayed) recons
-    fused_eval.LAUNCHES = 0
+    reset_launches()
     built0 = runners_built()
     t0 = time.perf_counter()
     s_full, r_full = wf.encode_many_fast([imgs[i] for i in land], QPD6,
@@ -1268,10 +1695,9 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
                                          fetch_qc=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, built = fused_eval.LAUNCHES, runners_built() - built0
-    if k1 != LAUNCHES_PER_FRONT * (fronts(imgs[land[0]]) + built):
-        fail(f"K1 launched {k1} times with fetch_qc=True ({built} runners "
-             f"built)")
+    built = runners_built() - built0
+    k1 = check_fronts("fetch_qc=True", FRONT_LAUNCHES,
+                      fronts(imgs[land[0]]) + built)["k1"]
     for j, i in enumerate(land):
         if s_full[j] != streams[i]:
             fail(f"fetch_qc=True stream {i} differs from the lean path's")
@@ -1297,7 +1723,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     os.environ["HEVCE_ADAPT"] = "post"
     try:
         timer = PhaseTimer()
-        fused_eval.LAUNCHES = 0
+        reset_launches()
         built0 = runners_built()
         t0 = time.perf_counter()
         s_post, r_post = wf.encode_many_fast(post, QPD6, batch=BATCH,
@@ -1312,11 +1738,10 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     flagged, kept = timer.counts["adapt_flagged"], timer.counts["adapt_kept"]
     if not flagged:
         fail("HEVCE_ADAPT=post flagged no image")
-    k1, built = fused_eval.LAUNCHES, runners_built() - built0
-    if k1 != LAUNCHES_PER_FRONT * (2 * fronts(post[0]) + built):
-        fail(f"K1 launched {k1} times under HEVCE_ADAPT=post, expected a "
-             f"primary and a corrective pass of {fronts(post[0])} fronts "
-             f"and {built} warm-up steps")
+    built = runners_built() - built0
+    # a primary and a corrective pass, and the warm-up steps
+    k1 = check_fronts("HEVCE_ADAPT=post", FRONT_LAUNCHES,
+                      2 * fronts(post[0]) + built)["k1"]
     for i, (s, r) in enumerate(zip(s_post, r_post)):
         if not np.array_equal(native.decode_stream(s), r):
             fail(f"HEVCE_ADAPT=post stream {i} does not decode to its recon")
@@ -1333,15 +1758,15 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     # encode_many_exact: hinted, byte-identical to the native engine
     two = [imgs[i][:EXACT_SHAPE[0], :EXACT_SHAPE[1]] for i in land[:2]]
     timer = PhaseTimer()
-    fused_eval.LAUNCHES = 0
+    reset_launches()
     built0 = runners_built()
     t0 = time.perf_counter()
     s_ex, r_ex = wf.encode_many_exact(two, QPD6, timer=timer, batch=BATCH,
                                       device=dev)
     wall = time.perf_counter() - t0
     built = runners_built() - built0
-    if fused_eval.LAUNCHES != LAUNCHES_PER_FRONT * (fronts(two[0]) + built):
-        fail(f"K1 launched {fused_eval.LAUNCHES} times for the hints")
+    k1 = check_fronts("the hints of encode_many_exact", FRONT_LAUNCHES,
+                      fronts(two[0]) + built)["k1"]
     t0 = time.perf_counter()
     refs = [native.encode_image_native(im, QPD6) for im in two]
     native_s = time.perf_counter() - t0
@@ -1352,8 +1777,7 @@ def phase_surface(torch, dev, rng, card, imgs, streams, recons):
     res["exact"] = {"images": len(two), "wall_s": wall,
                     "host_rdo_s": timer.totals["host_rdo"],
                     "phases_s": dict(timer.totals),
-                    "k1_launches": fused_eval.LAUNCHES,
-                    "runners_built": built,
+                    "k1_launches": k1, "runners_built": built,
                     "native_sequential_s": native_s,
                     "byte_identical": len(two), "shape": list(EXACT_SHAPE),
                     "cut": f"2 images cut to {EXACT_SHAPE[0]}x"
@@ -1397,7 +1821,7 @@ def phase_spec(torch, dev, card):
     ctus = sum(-(-im.shape[0] // 32) * -(-im.shape[1] // 32)
                for _, im, _ in imgs)
     timer = PhaseTimer()
-    fused_eval.LAUNCHES = 0
+    reset_launches()
     since = captured()
     t0 = time.perf_counter()
     out = [encoder.encode_image(im, q, device=dev, timer=timer)
@@ -1405,6 +1829,7 @@ def phase_spec(torch, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_eval.LAUNCHES
+    x_only_x1("the spec path")
     built = programs_built(since)
     w1 = warmup_launches(since)[0]
     if launches != sum(K1_PER_CTU.values()) * ctus + w1:
@@ -1577,8 +2002,7 @@ def phase_mesh(torch, dev, card):
                 step(*args)
             torch.cuda.synchronize()
             step_s[f"sz{sz}_{split}"] = (time.perf_counter() - t0) / 10
-    fused_eval.LAUNCHES = 0
-    cabac_scan.LAUNCHES = 0
+    reset_launches()
     built0 = runners_built()
     since = captured()
     said = io.StringIO()
@@ -1605,17 +2029,26 @@ def phase_mesh(torch, dev, card):
     if (k1, k2) != (want_k1, want_k2):
         fail(f"dryrun_multichip(2) launched K1 {k1} and K2 {k2} times, "
              f"expected {want_k1} and {want_k2}")
+    # X1 once before each K1 launch but on the fast mode's front steps,
+    # which launch X1-X3 FRONT_LAUNCHES times
+    fast = 2 * 12 + built
+    counts = port_launches()
+    want_x = {x: FRONT_LAUNCHES[x] * fast for x in ("x2", "x3")}
+    want_x["x1"] = k1 - fast * (FRONT_LAUNCHES["k1"] - FRONT_LAUNCHES["x1"])
+    if {x: counts[x] for x in want_x} != want_x:
+        fail(f"dryrun_multichip(2) launched {counts}, expected X1-X3 "
+             f"{want_x}")
     emit({"phase": "mesh", "card": card, "mesh": [str(d) for d in mesh],
           "entry_equal_cpu": True, "steps_equal_unsplit": [8, 32],
           "dryrun_wall_s": wall, "dryrun": said.getvalue().splitlines(),
           "k1_launches": k1, "runners_built": built,
           "programs_built": dict(programs_built(since)),
-          "k2_launches": k2, "device_step_s": step_s,
+          "k2_launches": k2, "launches": counts, "device_step_s": step_s,
           "device_step_basis": "host wall to a synchronize per "
                                "device_step_fn call at 4 rows, mean of 10 "
                                "(replays; mesh: two parts of 2 on one "
                                "card)"})
-    return k1, k2
+    return counts
 
 
 # ------------------------------------------------------------------ probes
@@ -1774,6 +2207,57 @@ def phase_probes(torch, dev, rng):
 
 # -------------------------------------------------------------------- main
 
+def x_entry(x, row, err, counts, dense, mesh, lock_launches, spec_launches,
+            replays):
+    """X kernel x's entry of the closing kernels line: its launches on the
+    main path (the slice phase's timed run), its card, call and plain ms
+    and bound per RMD front step at 288 lanes (the xnode phase), its card
+    ms a step in the graph phase's profiled replays, and the same for the
+    dense step and, for X1, per lockstep and spec CTU."""
+    _, _, kern, jax_at = X_KERNELS[x]
+    st = row["step"]
+    out = {"name": kern, "route": "cuda",
+           "source": "hevce_tpu_torch/csrc/fused_node.cu",
+           "replaces": jax_at,
+           "replaces_note": X_REPLACES[x] + "; no Pallas kernel: it stands "
+                            "for XLA's fusion of the JAX front step",
+           "launches": counts[x], "max_abs_err": err,
+           "ms": st["ms"], "plain_ms": st["plain_ms"],
+           "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+           "library_ms": None, "call_ms": st["call_ms"],
+           "launches_per_front": FRONT_LAUNCHES[x],
+           "dense_launches": dense["x_launches"][x],
+           "dense_launches_per_front": DENSE_FRONT_LAUNCHES[x],
+           "mesh_launches": mesh[x],
+           "replay_ms_per_front": replays["rmd"]["profile"]["port_kernels"]
+           [x]["ms_per_step"],
+           "dense_replay_ms_per_front": replays["dense"]["profile"]
+           ["port_kernels"][x]["ms_per_step"]}
+    if "dense_step" in row:
+        out.update({f"dense_{k}_per_front": row["dense_step"][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "call_ms")})
+    if x == "x1":
+        out["lockstep_launches"], out["spec_launches"] = (lock_launches,
+                                                          spec_launches)
+        for path in ("lockstep", "spec"):
+            out.update({f"{path}_{k}_per_ctu": row[f"{path}_ctu"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "call_ms")})
+    out["basis"] = (f"card time (CUDA events behind a spin kernel) of the "
+                    f"{FRONT_LAUNCHES[x]} calls of one RMD front step of a "
+                    f"768x512 batch of {BATCH} ({LANES} lanes), the plain "
+                    f"version's (profiler) on the same inputs; "
+                    f"call_ms includes the host's enqueue; launches count "
+                    f"the slice phase's timed run, dense_* one dense step "
+                    f"({DENSE_FRONT_LAUNCHES[x]} calls); replay_ms_per_front "
+                    f"its card time a step in the graph phase's profiled "
+                    f"replays (profiler); bound_ms the bytes and int32 "
+                    f"operations each call's data needs (x_cost)"
+                    + ("; lockstep_* / spec_* the 169 calls of one CTU at "
+                       "18 rows / one row, launches over the lockstep runs "
+                       "/ the spec phase" if x == "x1" else ""))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1818,8 +2302,11 @@ def main():
     k2_err, k2_shapes_ = timed("k2", phase_k2, torch, dev, rng)
     for k in probes.LAUNCHES:          # the encode paths never run a probe
         probes.LAUNCHES[k] = 0
-    launches, imgs, streams, recons, slice_mp_s = timed(
+    counts, imgs, streams, recons, slice_mp_s = timed(
         "slice", phase_slice, torch, dev, rng, card)
+    # X1-X3 on a generator of their own (the later phases' inputs stay)
+    x_err, x_rows = timed("xnode", phase_xnode, torch, dev,
+                          np.random.default_rng([args.seed, 13]), card, imgs)
     lock_k1, lock_k2 = timed("lockstep", phase_lockstep, torch, dev, rng,
                              card)
     timed("profile", phase_profile, torch, dev, rng)
@@ -1827,10 +2314,10 @@ def main():
     dense = timed("dense", phase_dense, torch, dev, card, imgs, shapes)
     timed("surface", phase_surface, torch, dev,
           np.random.default_rng([args.seed, 7]), card, imgs, streams, recons)
-    timed("graph", phase_graph, torch, dev, card, imgs, slice_mp_s)
+    replays = timed("graph", phase_graph, torch, dev, card, imgs, slice_mp_s)
     spec = timed("spec", phase_spec, torch, dev, card)
     timed("cli", phase_cli, card)
-    mesh_k1, mesh_k2 = timed("mesh", phase_mesh, torch, dev, card)
+    mesh = timed("mesh", phase_mesh, torch, dev, card)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
     emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS,
@@ -1850,7 +2337,7 @@ def main():
         "name": "fused_eval", "route": "cuda",
         "source": "hevce_tpu_torch/csrc/fused_eval.cu",
         "replaces": "hevce_tpu/ops/fused_eval.py:255",
-        "launches": launches,
+        "launches": counts["k1"],
         "max_abs_err": max(max_err, dense["max_abs_err"],
                            spec["max_abs_err"]),
         "ms": per_front("ms"), "plain_ms": per_front("plain_ms"),
@@ -1875,7 +2362,7 @@ def main():
         "spec_bound_ms_per_ctu": spec["bound_ms_per_ctu"],
         "spec_tc_bound_ms_per_ctu": spec["tc_bound_ms_per_ctu"],
         "spec_plain_ms_per_ctu": spec["plain_ms_per_ctu"],
-        "mesh_launches": mesh_k1,
+        "mesh_launches": mesh["k1"],
         "basis": f"card time of one front step of a 768x512 batch of "
                  f"{BATCH} ({LAUNCHES_PER_FRONT} launches, {LANES} lanes); "
                  f"call_ms includes the host's enqueue; bound_ms with the "
@@ -1900,7 +2387,7 @@ def main():
         "library_ms": None, "call_ms": per_ctu("call_ms"),
         "kernel_ms": per_ctu("kernel_ms"),
         "ns_per_op": {s["shape"]: s["ns_per_op"] for s in k2_shapes_},
-        "mesh_launches": mesh_k2,
+        "mesh_launches": mesh["k2"],
         "basis": f"one CTU of the lockstep path with node_rates on at a "
                  f"batch of {BATCH} ({PU_PER_CTU} PU launches at 630 lanes, "
                  f"21 node launches at 1260 lanes), on op strings of "
@@ -1915,7 +2402,9 @@ def main():
                    "of the probe tool (python -m hevce_tpu_torch.tools."
                    "cuda_probe), this kernel's path; encode_launches its "
                    "launches on the fast and lockstep paths")
-        for r in probe_rows.values()]})
+        for r in probe_rows.values()] + [
+        x_entry(x, x_rows[x], x_err[x], counts, dense, mesh, lock_k1,
+                spec["launches"], replays) for x in X_KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

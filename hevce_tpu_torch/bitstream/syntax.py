@@ -4,7 +4,7 @@ The tables: CG-major diagonal / horizontal / vertical scan orders, the
 H.265 last-significant group index and group base, the last-XY context rows
 and shifts, and the significance-flag context index (H.265 9.3.4.2;
 reference src/HEVCe.c:1046-1150), which the wavefront rate model
-(models/wavefront._scan_consts) and the residual op-string generator
+(ops/fused_node._scan_consts) and the residual op-string generator
 (ops/coef_ops) also read. The writers (reference src/HEVCe.c:939-1340):
 split_cu_flag, part_mode, the intra pmode with its 3-entry MPM list, rqt
 split, cbf, last-significant-XY, the significance map, greater1/greater2,

@@ -41,9 +41,11 @@ import torch
 
 from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as Cst
-from hevce_tpu_torch.ops import intra, rdcost
-from hevce_tpu_torch.ops import quant as qops
-from hevce_tpu_torch.ops import satd as satd_ops
+from hevce_tpu_torch.ops import fused_node, intra, rdcost
+# the rate model's units and the selectors the node functions still run
+# (the rest of the rate model lives beside the kernels that fuse it, X2, X3)
+from hevce_tpu_torch.ops.fused_node import (BIT, HALF, MODES, _i32, _sel_i32,
+                                            _topk_mask)
 from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
@@ -51,9 +53,7 @@ from hevce_tpu_torch.utils import graphs
 from hevce_tpu_torch.utils.tracing import PhaseTimer
 
 CTU = 32
-MODES = 35
 DC = 1
-BIT = 1 << 15
 I32_MAX = rdcost.I32_MAX
 
 
@@ -86,16 +86,11 @@ def _ctx_default(qpd6: int) -> int:
     return int(0.60 * BIT) if qpd6 == 1 else CTX_BIT
 
 
-HALF = 1 << 14                # fixed->integer-bit rounding
 HDR_LAY1_BINS = 6             # flag + uv + 2 uvcbf + tusplit + 1 ycbf
 HDR_LAY2_BINS = 9             # flag + uv + 2 uvcbf + tusplit + 4 ycbf
 HDR_NXN_BINS = 4              # part + uv + 2 uvcbf (per-PU ycbf per PU)
 
 _SUB = ((0, 0), (0, 1), (1, 0), (1, 1))   # z-order, units of half-size
-
-
-def _i32(x):
-    return x.to(torch.int32)
 
 
 def _argmin_first(x, dim):
@@ -108,189 +103,7 @@ def _argmin_first(x, dim):
     return mn.squeeze(dim), _i32(first)
 
 
-# ------------------------------------------------------------- rate model
-
-def _est_rate(q, axes):
-    """coefficient-rate estimate: estimateCoeffRate summed over the block
-    (<<15); at most 1024 * 1.2e6 < 2^31."""
-    return _i32(qops.estimate_coeff_rate(q.abs()).sum(axes))
-
-
-def _mpm_triplet(pml, pma):
-    """(lanes,) neighbor pmodes -> three (lanes,) most-probable modes
-    (reference MPM derivation, src/HEVCe.c:958-977)."""
-    pml, pma = _i32(pml), _i32(pma)
-    neq = pml != pma
-    gt1 = pml > 1
-    e0 = torch.where(gt1, pml, 0)
-    e1 = torch.where(gt1, ((pml + 29) % 32) + 2, 1)
-    e2 = torch.where(gt1, ((pml - 1) % 32) + 2, 26)
-    u2 = torch.where((pml != 0) & (pma != 0), 0,
-                     torch.where(pml + pma < 2, 26, 1))
-    return (torch.where(neq, pml, e0), torch.where(neq, pma, e1),
-            torch.where(neq, u2, e2))
-
-
-def _pmode_rate(pml, pma, ctxv):
-    """(lanes,) neighbor pmodes -> (lanes, 35) estimated pmode signalling
-    rate (<<15): 1 context bin (per-lane price ctxv) + 1/2/5 bypass bits for
-    MPM hit 0 / hits 1-2 / miss (last-match-wins, as the reference)."""
-    m0, m1, m2 = _mpm_triplet(pml, pma)
-    modes = torch.arange(MODES, dtype=torch.int32, device=pml.device)
-    cv = ctxv[:, None]
-    bits = (cv + 5 * BIT).expand(pml.shape + (MODES,))
-    bits = torch.where(modes[None, :] == m0[:, None], cv + BIT, bits)
-    bits = torch.where(modes[None, :] == m1[:, None], cv + 2 * BIT, bits)
-    bits = torch.where(modes[None, :] == m2[:, None], cv + 2 * BIT, bits)
-    return bits
-
-
-def _np_group_rate(v, gmax: int):
-    """H.265 last-XY coordinate code rate components (numpy): prefix
-    ctx-bin COUNT and bypass suffix bits (reference put_last_xy,
-    src/HEVCe.c:1046-1087); v in [0, 31]."""
-    from hevce_tpu_torch.bitstream import syntax as syn
-    g = syn.GROUP_INDEX[v]
-    ctx = g + (g < gmax).astype(np.int32)
-    byp = np.where(g > 3, (g - 2) >> 1, 0)
-    return ctx, byp
-
-
-@functools.lru_cache(maxsize=None)
-def _scan_consts(sz: int):
-    """numpy constants for the last-XY estimate, per scan type: inverse scan
-    (flat pixel -> scan index), last-XY context-bin COUNT and bypass rate
-    (<<15) if the last significant coefficient sits at that pixel, and the
-    per-mode scan type (src/HEVCe.c:1134-1150)."""
-    from hevce_tpu_torch.bitstream import syntax as syn
-    nn = sz * sz
-    gmax = int(syn.GROUP_INDEX[sz - 1])
-    inv = np.zeros((3, nn), np.int32)
-    cnt = np.zeros((3, nn), np.int32)
-    byp = np.zeros((3, nn), np.int32)
-    ys = (np.arange(nn) // sz).astype(np.int32)
-    xs = (np.arange(nn) % sz).astype(np.int32)
-    for st in range(3):
-        tab = syn.scan_table(sz, st)                  # (nn, 2) of (y, x)
-        inv[st, tab[:, 0] * sz + tab[:, 1]] = np.arange(nn, dtype=np.int32)
-        ty, tx = (xs, ys) if st == syn.SCAN_VER else (ys, xs)
-        cx, bx = _np_group_rate(tx, gmax)
-        cy, by = _np_group_rate(ty, gmax)
-        cnt[st] = cx + cy
-        byp[st] = (bx + by) * BIT
-    stm = np.zeros(MODES, np.int32)
-    if sz <= 8:
-        for m in range(MODES):
-            if abs(m - 26) <= 4:
-                stm[m] = syn.SCAN_HOR
-            elif abs(m - 10) <= 4:
-                stm[m] = syn.SCAN_VER
-    return inv, cnt, byp, stm
-
-
-@_device.cached_per_device
-def _scan_tensors(sz: int, device: torch.device):
-    """device tensors derived from _scan_consts: inverse scan, the packed
-    (bypass rate | ctx count << 20) per-position constant, the scan-order CG
-    one-hot (float32) and the per-mode scan types."""
-    inv, cnt, byp, stm = _scan_consts(sz)
-    nn = sz * sz
-    cgm = (inv[:, :, None] >> 4) == np.arange(max(1, nn // 16))[None, None]
-
-    def t(a, dt=torch.int32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
-    return (t(inv), t(byp + (cnt << 20)), t(cgm, torch.float32), t(stm))
-
-
-def _lastxy_rate(sz: int, q, ctxv, sigv, stv=None):
-    """(..., M, sz, sz) quant levels -> (..., M) estimated last-XY + sig-map
-    rate (<<15) at per-lane context/sig-zero prices ctxv/sigv (lanes,).
-
-    The last significant scan position is max(inv_scan * sig); the rate at
-    that position is a one-hot sum against a constant packed table (ctx
-    count in bits 20+, bypass rate in bits 0..19). Sizes > 4 refine per
-    coefficient group: an all-zero MIDDLE group costs one sig_cg bin
-    instead of 16 sig-zero charges, and every middle group pays its flag.
-    Mode-dependent scan types (sz <= 8) select among three per-type results.
-    All-zero blocks contribute 0. stv=None: the lane axis is all 35 modes;
-    stv (..., M): per-lane scan types."""
-    inv, packed, cgm, stm = _scan_tensors(sz, q.device)
-    nn = sz * sz
-    sig = q.reshape(q.shape[:-2] + (nn,)) != 0
-    nz = sig.any(-1)
-    sigi = _i32(sig)
-    nnz = sigi.sum(-1, dtype=torch.int32)
-    cv = ctxv.reshape(ctxv.shape + (1,) * (nz.dim() - 1))
-    sv = sigv.reshape(sigv.shape + (1,) * (nz.dim() - 1))
-    sts = (0, 1, 2) if sz <= 8 else (0,)
-    outs = {}
-    for st in sts:
-        invv = inv[st]
-        il = (invv * sigi).max(-1).values
-        zb = il + 1 - nnz
-        oh = _i32(invv == il[..., None])
-        sel = (oh * packed[st]).sum(-1, dtype=torch.int32)
-        rate = (sel >> 20) * cv + (sel & ((1 << 20) - 1)) + zb * sv
-        if nn > 16:
-            ncg = nn // 16
-            # per-CG nonzero counts: float32 product, exact (counts <= 16)
-            nnz_cg = _i32(torch.matmul(sigi.to(torch.float32), cgm[st]))
-            cg_last = il >> 4
-            cgi = torch.arange(ncg, dtype=torch.int32, device=q.device)
-            mid = (cgi >= 1) & (cgi < cg_last[..., None])
-            n_mid = torch.clamp(cg_last - 1, min=0)
-            n_mid_zero = (mid & (nnz_cg == 0)).sum(-1, dtype=torch.int32)
-            rate = rate - 16 * n_mid_zero * sv + n_mid * cv
-        outs[st] = rate
-    if len(outs) == 1:
-        bits = outs[0]
-    else:
-        if stv is None:
-            stv = stm
-        bits = torch.where(stv == 1, outs[1],
-                           torch.where(stv == 2, outs[2], outs[0]))
-    return torch.where(nz, bits, 0)
-
-
-# -------------------------------------------------------------- selectors
-
-def _topk_mask(cost, K: int):
-    """(..., M) int32 costs -> (..., K, M) bool top-K one-hots. The selected
-    SET equals K sequential argmin rounds (ties toward lower index); row k
-    enumerates that set in ascending INDEX order. Every entry strictly below
-    the K-th smallest value is kept; ties at that value are admitted in index
-    order up to the K-slot budget. K >= M is the identity."""
-    M = cost.shape[-1]
-    if K >= M:
-        eye = torch.eye(M, dtype=torch.bool, device=cost.device)
-        return eye.expand(cost.shape[:-1] + (M, M))
-    thr = torch.sort(cost, -1).values[..., K - 1:K]    # K-th smallest value
-    strict = cost < thr
-    tie = cost == thr
-    budget = K - strict.sum(-1, keepdim=True)          # >= 1 tie always fits
-    mask = strict | (tie & (torch.cumsum(tie, -1) <= budget))
-    rank = torch.cumsum(mask, -1) - 1
-    ks = torch.arange(K, device=cost.device)
-    return mask[..., None, :] & (rank[..., None, :] == ks[:, None])
-
-
-def _sel_i32(oh, v):
-    """one-hot select integer per-mode values: oh (..., K, 35) bool,
-    v (35,) or (..., 35) int -> (..., K) int32 (single nonzero term)."""
-    return (_i32(oh) * _i32(v)[..., None, :]).sum(-1, dtype=torch.int32)
-
-
-def _compress_u8(oh, x):
-    """compress the mode axis of a uint8 tensor through top-K one-hots:
-    oh (B, K, 35) bool, x (B, 35, sz, sz) u8 -> (B, K, sz, sz) u8. A float32
-    product, exact: one nonzero term per output, pixels <= 255."""
-    B, M = x.shape[0], x.shape[1]
-    nn = x.shape[-2] * x.shape[-1]
-    acc = torch.matmul(oh.to(torch.float32),
-                       x.reshape(B, M, nn).to(torch.float32))
-    return acc.to(torch.uint8).reshape(B, oh.shape[-2], *x.shape[-2:])
-
+# ------------------------------------------------------------- selectors
 
 def _onehot_pick(x, oh, dtype):
     """(B, M, nn) values, (B, M) one-hot -> (B, nn) in `dtype` (a masked
@@ -344,15 +157,10 @@ def _eval_node(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
     q4, r4, s4 = cu_eval.eval_tusplit(sz, qpd6, top, left, fl, blk)
 
     h = sz // 2
-    pmr = _pmode_rate(pml, pma, ctxv)                  # (B, 35)
-    last1 = _lastxy_rate(sz, q1, ctxv, sigv)
-    last3 = sum(_lastxy_rate(h, q4[..., k, :, :], ctxv, sigv)
-                for k in range(4))
-    cvc = ctxv[:, None]
-    r1f = _est_rate(q1, (-1, -2)) + last1 + pmr + HDR_LAY1_BINS * cvc
-    r3f = _est_rate(q4, (-1, -2, -3)) + last3 + pmr + HDR_LAY2_BINS * cvc
-    cost1 = rdcost.calc_rd_cost(qpd6, s1, (r1f + HALF) >> 15)   # (B, 35)
-    cost3 = rdcost.calc_rd_cost(qpd6, s4, (r3f + HALF) >> 15)
+    cost1 = fused_node.rate_cost(sz, qpd6, q1, s1, ctxv, sigv, pml, pma,
+                                 HDR_LAY1_BINS)                 # (B, 35)
+    cost3 = fused_node.rate_cost(sz, qpd6, q4, s4, ctxv, sigv, pml, pma,
+                                 HDR_LAY2_BINS, split=True)
     cost, sel = _argmin_first(torch.cat([cost1, cost3], 1), 1)
     lay = torch.where(sel < MODES, 1, 2)
     pm = torch.where(sel < MODES, sel, sel - MODES)
@@ -384,45 +192,20 @@ def _eval_node_rmd(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
     ctxv, sigv = prices
     dev = A.device
     top, left = _node_ctx(A, y0, x0, sz)
-    blk = orig[:, y0:y0 + sz, x0:x0 + sz]
-    S = intra.build_borders(sz, top[..., 0], left, top[..., 1:],
-                            fl[..., 0], fl[..., 1], fl[..., 2], fl[..., 3])
-    pred35 = intra.predict_all_modes(sz, S)            # (B, 35, sz, sz) u8
-    resid = blk[:, None].to(torch.int16) - pred35.to(torch.int16)
-    sat_d = satd_ops.block_satd(sz, resid)             # (B, 35) i32
-    # forced candidates (planar, DC, the 3 MPMs) always survive: bias them
-    # below any unforced SATD, preserving order among themselves
-    m0, m1, m2 = _mpm_triplet(pml, pma)
-    modes = torch.arange(MODES, dtype=torch.int32, device=dev)
-    forced = ((modes[None, :] <= 1) | (modes[None, :] == m0[:, None])
-              | (modes[None, :] == m1[:, None])
-              | (modes[None, :] == m2[:, None]))
-    ohK = _topk_mask(sat_d - (_i32(forced) << 29), K)
-    predK = _compress_u8(ohK, pred35)
+    blk = orig[:, y0:y0 + sz, x0:x0 + sz].contiguous()
+    # the K kept modes (ascending) and their predictions (X2 on the card)
+    predK, modesK = fused_node.preselect(sz, top, left, fl, blk, pml, pma,
+                                         K)
     qK, rK, sseK = cu_eval.pipeline_sse(sz, qpd6, predK, blk)
-
-    pmr35 = _pmode_rate(pml, pma, ctxv)                # (B, 35)
-    stm = _scan_tensors(sz, dev)[3]
-    pmrK = _sel_i32(ohK, pmr35)
-    lastK = _lastxy_rate(sz, qK, ctxv, sigv,
-                         stv=_sel_i32(ohK, stm) if sz <= 8 else None)
-    cvc = ctxv[:, None]
-    r1f = _est_rate(qK, (-1, -2)) + lastK + pmrK + HDR_LAY1_BINS * cvc
-    cost1 = rdcost.calc_rd_cost(qpd6, sseK, (r1f + HALF) >> 15)   # (B, K)
+    cost1 = fused_node.rate_cost(sz, qpd6, qK, sseK, ctxv, sigv, pml, pma,
+                                 HDR_LAY1_BINS, modesK)         # (B, K)
 
     # TU-split searched only on the top-T modes by 2Nx2N RD cost
-    ohT_K = _topk_mask(cost1, min(T, K))               # (B, T, K)
-    ohT = (ohT_K[..., :, :, None] & ohK[..., None, :, :]).any(-2)  # (B,T,35)
+    modesT = _sel_i32(_topk_mask(cost1, min(T, K)), modesK)     # (B, T)
     q4, r4, s4 = cu_eval.eval_tusplit(sz, qpd6, top, left, fl, blk,
-                                      sel_oh=ohT)
-    h = sz // 2
-    stmh = _scan_tensors(h, dev)[3]
-    stvT = _sel_i32(ohT, stmh) if h <= 8 else None
-    last3 = sum(_lastxy_rate(h, q4[..., k, :, :], ctxv, sigv, stv=stvT)
-                for k in range(4))
-    pmrT = _sel_i32(ohT, pmr35)
-    r3f = _est_rate(q4, (-1, -2, -3)) + last3 + pmrT + HDR_LAY2_BINS * cvc
-    cost3 = rdcost.calc_rd_cost(qpd6, s4, (r3f + HALF) >> 15)     # (B, T)
+                                      modes=modesT)
+    cost3 = fused_node.rate_cost(sz, qpd6, q4, s4, ctxv, sigv, pml, pma,
+                                 HDR_LAY2_BINS, modesT, split=True)
 
     Tn = cost3.shape[-1]
     costs = torch.cat([cost1, cost3], 1)               # (B, K+T)
@@ -434,11 +217,7 @@ def _eval_node_rmd(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
         == sel[:, None]
     oh3 = torch.arange(Tn, dtype=torch.int32, device=dev)[None, :] \
         == (sel[:, None] - K)
-    # winner mode in 35-space through the selection one-hots
-    moh = torch.where((lay == 1)[:, None],
-                      (oh1[..., None] & ohK).any(-2),
-                      (oh3[..., None] & ohT).any(-2))  # (B, 35)
-    pm = (_i32(moh) * modes[None, :]).sum(-1, dtype=torch.int32)
+    pm = torch.cat([modesK, modesT], 1).gather(1, sel[:, None].long())[:, 0]
     quant = (_onehot_pick(qK.reshape(B, K, nn), oh1, torch.int16)
              + _onehot_pick(q4.reshape(B, Tn, nn), oh3, torch.int16))
     recon = (_onehot_pick(rK.reshape(B, K, nn), oh1, torch.uint8)
@@ -479,9 +258,8 @@ def _eval_nxn(qpd6, A, orig, fl8, pml, pma, pl_lo, pa_hi, y0, x0, prices,
             pl, pa = pl_lo, sub_pm[0]
         else:
             pl, pa = sub_pm[2], sub_pm[1]
-        rf = (_pmode_rate(pl, pa, ctxv) + _lastxy_rate(4, q, ctxv, sigv)
-              + _est_rate(q, (-1, -2)) + ctxv[:, None])  # +ctx: per-PU Y cbf
-        cost = rdcost.calc_rd_cost(qpd6, s, (rf + HALF) >> 15)   # (B, 35)
+        # one header bin: the PU's Y cbf
+        cost = fused_node.rate_cost(4, qpd6, q, s, ctxv, sigv, pl, pa, 1)
         c, sel = _argmin_first(cost, 1)
         B = sel.shape[0]
         oh = torch.arange(MODES, dtype=torch.int32, device=A.device)[None, :] \
@@ -760,7 +538,7 @@ class _SliceRunner:
         self.S = z((D, B, R, CTU, CTU), torch.uint8) if want_recon else None
         self.run = self.step          # capture() replaces it by its replay
         self.graph = None
-        self.k1_per_step = 0
+        self.launches = {}
         self.stats = {}
 
     def load(self, O, cv, sv):
@@ -793,15 +571,15 @@ class _SliceRunner:
     def capture(self):
         """CUDA: capture the step (utils/graphs.CapturedStep: one eager
         warm-up step on a side stream, the capture into a graph with a
-        private pool, its instantiation; a failed capture raises). K1's
-        launch counter keeps counting the kernels the card runs: the
-        warm-up's count stays, the capture's is added again at every
-        replay. graph, k1_per_step (K1 launches a replay) and stats (the
-        warm-up, capture and instantiate seconds, the pool's bytes) are the
-        captured step's."""
+        private pool, its instantiation; a failed capture raises). The
+        kernels' launch counters keep counting the kernels the card runs:
+        the warm-up's count stays, the capture's is added again at every
+        replay. graph, launches (each kernel's launches a replay) and
+        stats (the warm-up, capture and instantiate seconds, the pool's
+        bytes) are the captured step's."""
         self.run = graphs.CapturedStep(self.step, self.device, "front")
         self.graph, self.stats = self.run.graph, self.run.stats
-        self.k1_per_step = self.run.launches["k1"]
+        self.launches = dict(self.run.launches)
 
     def front(self, d: int):
         """front step d: a replay of the captured step, or (not captured)

@@ -20,7 +20,7 @@ def numpy_tables() -> dict:
     arguments)."""
     from hevce_tpu_torch.models import wavefront as wf
     from hevce_tpu_torch.ops import constants as C
-    from hevce_tpu_torch.ops import intra
+    from hevce_tpu_torch.ops import fused_node, intra
 
     return dict(
         transform_mat={sz: C.TRANSFORM_MAT[sz] for sz in SIZES},
@@ -32,7 +32,7 @@ def numpy_tables() -> dict:
                 for name in ("FWD_SHIFT_A", "QUANT_DIST_SHIFT",
                              "QUANT_LEVEL_SHIFT", "DEQUANT_SHIFT")},
         angular={sz: intra._angular_matrix(sz) for sz in SIZES},
-        scan={sz: wf._scan_consts(sz) for sz in SIZES},
+        scan={sz: fused_node._scan_consts(sz) for sz in SIZES},
         prices=(np.array([wf._ctx_default(q) for q in range(5)], np.int32),
                 np.full(5, wf.SIG_ZERO, np.int32)),
     )
@@ -44,7 +44,7 @@ def tables_from_numpy(transform_mat, level_rate, rd_weight_dist,
     """numpy tables -> the port's tensors on `device`.
 
     transform_mat / angular / scan: dicts keyed by block size (scan values
-    are the (inv, cnt, byp, stm) tuples of models/wavefront._scan_consts);
+    are the (inv, cnt, byp, stm) tuples of ops/fused_node._scan_consts);
     shifts: dict of per-size int arrays; prices: the default per-qpd6
     (ctx, sig) bin-price arrays (<<15 fixed point)."""
     dev = torch.device(device)

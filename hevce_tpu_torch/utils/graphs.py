@@ -12,10 +12,10 @@ use, the kernels' modules), then the capture of the step on that stream into
 a graph with a private memory pool (CUDAGraph(keep_graph=True)), with host
 syncs raised as errors (torch.cuda.set_sync_debug_mode), and its
 instantiation. A failed capture raises; nothing runs the step eagerly on
-CUDA after it. The kernel counters (K1's fused_eval.LAUNCHES, K2's
-cabac_scan.LAUNCHES) keep counting the kernels the card runs: the warm-up's
-launches stay, the capture's (no kernel runs) are taken back and added again
-at every replay.
+CUDA after it. The kernel counters (COUNTERS: K1's fused_eval.LAUNCHES,
+K2's cabac_scan.LAUNCHES, X1-X3's fused_node.X1.LAUNCHES ...) keep counting
+the kernels the card runs: the warm-up's launches stay, the capture's (no
+kernel runs) are taken back and added again at every replay.
 
 Program: a step whose inputs are views of one int32 device buffer, loaded
 from the host with one copy, and whose outputs are static: a replay
@@ -29,10 +29,11 @@ import time
 import numpy as np
 import torch
 
-from hevce_tpu_torch.ops import cabac_scan, fused_eval
+from hevce_tpu_torch.ops import cabac_scan, fused_eval, fused_node
 
 # the kernel wrappers whose LAUNCHES count launches on the card
-COUNTERS = {"k1": fused_eval, "k2": cabac_scan}
+COUNTERS = {"k1": fused_eval, "k2": cabac_scan, "x1": fused_node.X1,
+            "x2": fused_node.X2, "x3": fused_node.X3}
 # every step captured in this process, in order (what the count checks of
 # chip_smoke.py add: one warm-up step per capture)
 CAPTURED = []
@@ -49,9 +50,9 @@ class CapturedStep:
 
     Attributes after a capture: graph (the CUDAGraph; None on the CPU), out
     (what the captured step returned: the tensors every replay rewrites),
-    launches ({"k1": n, "k2": n} a replay adds to the counters), stats (the
-    seconds of the warm-up step, the capture and the instantiation, and the
-    bytes the capture reserved: its pool)."""
+    launches ({"k1": n, "k2": n, "x1": n, ...} a replay adds to the
+    counters), stats (the seconds of the warm-up step, the capture and the
+    instantiation, and the bytes the capture reserved: its pool)."""
 
     def __init__(self, step, device: torch.device, kind: str):
         self.step, self.device, self.kind = step, device, kind

@@ -98,9 +98,12 @@ def wrapper_launches() -> dict:
     runner's CUDA graph (models/wavefront._SliceRunner): its capture is
     taken back and every replay adds the captured launches. The probe
     tool's P1 graph counts its capture, not its replays."""
-    from hevce_tpu_torch.ops import cabac_scan, fused_eval, probes
+    from hevce_tpu_torch.ops import cabac_scan, fused_eval, fused_node, probes
 
     return {"k1_kernel": fused_eval.LAUNCHES, "k2_kernel": cabac_scan.LAUNCHES,
+            "x1_predict": fused_node.X1.LAUNCHES,
+            "x2_preselect": fused_node.X2.LAUNCHES,
+            "x3_rate_cost": fused_node.X3.LAUNCHES,
             "p1_add_one": probes.LAUNCHES["add_one"],
             "p2_int8_mm": probes.LAUNCHES["int8_mm"],
             "p3_fused4": probes.LAUNCHES["fused4"]}

@@ -19,7 +19,7 @@ import torch
 from hevce_tpu_torch.models import encoder
 from hevce_tpu_torch.models import wavefront as wf
 from hevce_tpu_torch.ops import (cabac_scan, cabac_sim, coef_ops, fused_eval,
-                                 probes)
+                                 fused_node, probes)
 from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.parallel import lockstep
 from hevce_tpu_torch.runtime import native
@@ -828,7 +828,7 @@ def test_graph_records_equal_eager_and_cpu(cuda_device, qpd6):
             want_recon=want_recon, fetch_qc=fetch_qc)[0])
         runner = wf._slice_runner_cache(qpd6, 2, 3, 2, rmd, fetch_qc,
                                         want_recon, dev)
-        assert runner.graph is not None and runner.k1_per_step == (
+        assert runner.graph is not None and runner.launches["k1"] == (
             153 if rmd is None else 169)
         cpu = _as_bytes(wf._dispatch_batch(
             imgs, qpd6, rmd, prices=prices, device="cpu",
@@ -937,3 +937,174 @@ def test_a_host_sync_in_the_step_fails_capture(cuda_device):
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "capture raised" in r.stdout
+
+
+# ------------------------------------------------------------ X1 - X3
+
+FLAGS16 = np.array([[(i >> k) & 1 for k in (3, 2, 1, 0)] for i in range(16)],
+                   bool)
+
+
+def _x_contexts(rng, dev, sz, rows):
+    """node contexts as the front step passes them: views of a canvas (a
+    row of the top, a strided column of the left), every flag combination,
+    flat and 0 / 255 borders."""
+    A = rng.integers(0, 256, (rows, 2 * sz + 2, 2 * sz + 2)).astype(np.uint8)
+    A[0], A[1, 0], A[1, 1:, 0] = 77, 255, 0
+    A = torch.from_numpy(A).to(dev)
+    fl = torch.from_numpy(FLAGS16[np.arange(rows) % 16]).to(dev)
+    return A[:, 0, 0:1 + 2 * sz], A[:, 1:1 + 2 * sz, 0], fl
+
+
+def _x_same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz", [4, 8, 16, 32])
+def test_x1_predict_matches_plain_on_card(cuda_device, sz):
+    """X1 equals its plain version on the card, tolerance 0: all 35 modes
+    at 288, 18 and one (1-D, int32) rows on strided uint8 and int32
+    contexts and every flag combination; each TU-split sub-TU (sz > 4)
+    from a canvas, with the lanes' modes given and lane = mode. One launch
+    a call."""
+    rng = np.random.default_rng(700 + sz)
+    for rows in (288, 18):
+        top, left, fl = _x_contexts(rng, cuda_device, sz, rows)
+        for t, l in ((top, left), (top.to(torch.int32), left.to(torch.int32))):
+            n0 = fused_node.X1.LAUNCHES
+            got = fused_node.predict(sz, t, l, fl)
+            torch.cuda.synchronize()
+            assert fused_node.X1.LAUNCHES == n0 + 1
+            _x_same(got, fused_node.predict_plain(sz, t, l, fl))
+        if sz > 4:
+            for M, modes in ((4, torch.from_numpy(rng.integers(
+                    0, 35, (rows, 4)).astype(np.int32)).to(cuda_device)),
+                             (35, None)):
+                canvas = torch.from_numpy(rng.integers(
+                    0, 256, (rows, M, sz, sz)).astype(np.uint8)).to(
+                        cuda_device)
+                for isub in range(4):
+                    args = (sz, top, left, fl, modes, canvas, isub)
+                    _x_same(fused_node.predict(*args),
+                            fused_node.predict_plain(*args))
+    one = [t.to(torch.int32)[5] for t in (top, left)] + [fl[5]]
+    _x_same(fused_node.predict(sz, *one), fused_node.predict_plain(sz, *one))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz", [8, 16, 32])
+def test_x2_preselect_matches_plain_on_card(cuda_device, sz):
+    """X2 equals its plain version on the card at K 1, 4, 12 and 35 on 288
+    rows: every flag combination, flat borders whose 35 SATDs tie across
+    the K-th place, neighbour modes read through strides."""
+    rng = np.random.default_rng(720 + sz)
+    top, left, fl = _x_contexts(rng, cuda_device, sz, 288)
+    blk = rng.integers(0, 256, (288, sz, sz)).astype(np.uint8)
+    blk[0] = 77
+    blk = torch.from_numpy(blk).to(cuda_device)
+    P = torch.from_numpy(rng.integers(0, 35, (288, 9, 9)).astype(
+        np.int32)).to(cuda_device)
+    P[0, 1, 0], P[0, 0, 1] = 7, 7
+    pml, pma = P[:, 1, 0], P[:, 0, 1]
+    for K in (1, 4, 12, 35):
+        n0 = fused_node.X2.LAUNCHES
+        got = fused_node.preselect(sz, top, left, fl, blk, pml, pma, K)
+        torch.cuda.synchronize()
+        assert fused_node.X2.LAUNCHES == n0 + 1
+        _x_same(got, fused_node.preselect_plain(sz, top, left, fl, blk, pml,
+                                                pma, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpd6", range(5))
+def test_x3_rate_cost_matches_plain_on_card(cuda_device, qpd6):
+    """X3 equals its plain version on the card at the main path's shapes
+    (RMD 2Nx2N on K=12, TU split on T=4, NxN PUs at (4, 35), the dense
+    (sz, 35) in both layouts) with all-zero blocks, levels at K1's int16
+    extremes and SSEs at the RD cost's saturation edges."""
+    rng = np.random.default_rng(740 + qpd6)
+    lim = (2**31 - 1) // int(wf.Cst.RDCOST_WEIGHT_DIST[qpd6])
+    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(
+        a.astype(dt))).to(cuda_device)
+    for sz, M, split, with_modes, hdr in (
+            (8, 12, False, True, 6), (16, 12, False, True, 6),
+            (32, 12, False, True, 6), (8, 4, True, True, 9),
+            (16, 4, True, True, 9), (32, 4, True, True, 9),
+            (4, 35, False, False, 1), (8, 35, False, False, 6),
+            (32, 35, True, False, 9)):
+        rows, n = 288, sz // 2 if split else sz
+        shape = (rows, M) + ((4, n, n) if split else (n, n))
+        q = np.where(rng.random(shape) < 0.1, rng.integers(-40, 41, shape), 0)
+        q[0, 1], q[0, 2] = 32767, -32768
+        q[1, 0] = rng.choice([-32768, -32767, 32767], shape[2:])
+        sse = rng.integers(0, 255 * 255 * 1024, (rows, M))
+        sse.reshape(-1)[:4] = (lim - 1, lim, min(lim + 1, 2**31 - 1), 0)
+        cv = rng.integers(0, 4 << 15, rows)
+        modes = (to(np.sort(rng.choice(35, (rows, M)), -1), np.int32)
+                 if with_modes else None)
+        args = (sz, qpd6, to(q, np.int16), to(sse, np.int32),
+                to(cv, np.int32), to(cv[::-1], np.int32),
+                to(rng.integers(0, 35, rows), np.int32),
+                to(rng.integers(0, 35, rows), np.int32), hdr, modes, split)
+        n0 = fused_node.X3.LAUNCHES
+        got = fused_node.rate_cost(*args)
+        torch.cuda.synchronize()
+        assert fused_node.X3.LAUNCHES == n0 + 1
+        _x_same(got, fused_node.rate_cost_plain(*args))
+
+
+@pytest.mark.cuda
+def test_fused_node_wrappers_reject_what_they_do_not_take(cuda_device):
+    top, left, fl = _x_contexts(np.random.default_rng(3), cuda_device, 8, 4)
+    with pytest.raises(TypeError):               # mixed context types
+        fused_node.predict(8, top, left.to(torch.int32), fl)
+    with pytest.raises(ValueError):              # a mix of devices
+        fused_node.predict(8, top, left.cpu(), fl)
+    with pytest.raises(ValueError):              # no canvas for a sub-TU
+        fused_node.predict(8, top, left, fl, None, None, 1)
+    with pytest.raises(ValueError):              # uint8 levels
+        fused_node.rate_cost(
+            4, 2, torch.zeros((4, 35, 4, 4), dtype=torch.uint8,
+                              device=cuda_device),
+            torch.zeros((4, 35), dtype=torch.int32, device=cuda_device),
+            *(torch.zeros(4, dtype=torch.int32, device=cuda_device)
+              for _ in range(4)), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rmd,per_step", [
+    ((12, 4), {"k1": 169, "x1": 148, "x2": 21, "x3": 106}),
+    (None, {"k1": 153, "x1": 153, "x2": 0, "x3": 106})])
+def test_graph_counts_x_launches_the_card_ran(cuda_device, rmd, per_step):
+    """X1-X3's LAUNCHES on the slice runner's graph: the warm-up step's
+    when a runner is built, the captured step's at every replay (as for
+    K1); a profiled call holds them all; the records equal the CPU's."""
+    rng = np.random.default_rng(13 if rmd else 14)
+    imgs = [rng.integers(0, 256, (64, 96)).astype(np.uint8)
+            for _ in range(5)]                      # a key of its own
+    D = 2 * (2 - 1) + 3
+    counters = graphs.COUNTERS
+    n0 = {k: counters[k].LAUNCHES for k in per_step}
+    card = wf._dispatch_batch(imgs, 2, rmd, device=cuda_device)[0].numpy()
+    assert {k: counters[k].LAUNCHES - n0[k] for k in per_step} == {
+        k: n * (D + 1) for k, n in per_step.items()}
+    cpu = wf._dispatch_batch(imgs, 2, rmd, device="cpu")[0].numpy()
+    assert card.tobytes() == cpu.tobytes()
+    runner = wf._slice_runner_cache(2, 2, 3, 5, rmd, False, False,
+                                    torch.device("cuda",
+                                                 torch.cuda.current_device()))
+    assert {k: runner.launches[k] for k in per_step} == per_step
+    O = torch.from_numpy(wf._orig_tiles_raster(imgs, 64, 96)).to(
+        runner.device)
+    cv, sv = (torch.full((5,), v, dtype=torch.int32, device=runner.device)
+              for v in (wf._ctx_default(2), wf.SIG_ZERO))
+    kernels, complete = timing.card_kernels(lambda: runner(O, cv, sv))
+    seen = {x: sum(n for k, _, n in kernels if tag in k) for x, tag in (
+        ("k1", "k1_kernel"), ("x1", "x1_predict"), ("x2", "x2_preselect"),
+        ("x3", "x3_rate_cost"))}
+    assert complete and seen == {k: n * D for k, n in per_step.items()}

@@ -14,6 +14,7 @@ import torch
 
 from hevce_tpu.models import wavefront as jwf
 from hevce_tpu_torch.models import wavefront as twf
+from hevce_tpu_torch.ops import fused_node as fn
 
 # the test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -43,7 +44,7 @@ def test_topk_mask_matches_sequential_argmin():
         cases.append((rng.integers(0, 6, (8, 35)).astype(np.int32), K))
         cases.append((rng.integers(0, 10**6, (8, 35)).astype(np.int32), K))
     for cost, K in cases:
-        oh = twf._topk_mask(_t(cost), K).numpy()
+        oh = fn._topk_mask(_t(cost), K).numpy()
         assert oh.shape == cost.shape[:-1] + (K, cost.shape[-1])
         np.testing.assert_array_equal(
             oh, np.asarray(jwf._topk_mask(jnp.asarray(cost), K)))
@@ -65,8 +66,8 @@ def test_lastxy_rate_oracle():
                      rng.integers(-5, 6, (20, 35, sz, sz)), 0).astype(np.int16)
         cv = torch.full((20,), twf.CTX_BIT, dtype=torch.int32)
         sv = torch.full((20,), twf.SIG_ZERO, dtype=torch.int32)
-        got = twf._lastxy_rate(sz, _t(q), cv, sv).numpy()
-        inv, cnt, byp, stm = twf._scan_consts(sz)
+        got = fn._lastxy_rate(sz, _t(q), cv, sv).numpy()
+        inv, cnt, byp, stm = fn._scan_consts(sz)
         tbl = cnt * twf.CTX_BIT + byp
         exp = np.zeros((20, 35), np.int64)
         for b in range(20):
@@ -102,36 +103,36 @@ def test_rate_model_matches_jax(sz):
     sv = rng.integers(0, int(0.5 * BIT), B).astype(np.int32)
     stv = rng.integers(0, 3, (B, M)).astype(np.int32)
     st_arg = (lambda f: f(stv)) if sz <= 8 else (lambda f: None)
-    got = twf._lastxy_rate(sz, _t(q), _t(cv), _t(sv), stv=st_arg(_t))
+    got = fn._lastxy_rate(sz, _t(q), _t(cv), _t(sv), stv=st_arg(_t))
     want = jwf._lastxy_rate(sz, jnp.asarray(q), jnp.asarray(cv),
                             jnp.asarray(sv), stv=st_arg(jnp.asarray))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
-        twf._est_rate(_t(q), (-1, -2)).numpy(),
+        fn._est_rate(_t(q), (-1, -2)).numpy(),
         np.asarray(jwf._est_rate(jnp.asarray(q), (-1, -2))))
 
     pml = rng.integers(0, 35, B).astype(np.int32)
     pma = rng.integers(0, 35, B).astype(np.int32)
     pml[0], pma[0] = 7, 7                    # equal neighbours
     pml[1], pma[1] = 0, 1                    # planar / DC
-    for a, b in zip(twf._mpm_triplet(_t(pml), _t(pma)),
+    for a, b in zip(fn._mpm_triplet(_t(pml), _t(pma)),
                     jwf._mpm_triplet(jnp.asarray(pml), jnp.asarray(pma))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    pmr = twf._pmode_rate(_t(pml), _t(pma), _t(cv))
+    pmr = fn._pmode_rate(_t(pml), _t(pma), _t(cv))
     np.testing.assert_array_equal(
         pmr.numpy(), np.asarray(jwf._pmode_rate(
             jnp.asarray(pml), jnp.asarray(pma), jnp.asarray(cv))))
 
     cost = rng.integers(0, 50, (B, 35)).astype(np.int32)
-    oh = twf._topk_mask(_t(cost), M)
+    oh = fn._topk_mask(_t(cost), M)
     ohj = jwf._topk_mask(jnp.asarray(cost), M)
     np.testing.assert_array_equal(
-        twf._sel_i32(oh, pmr).numpy(),
+        fn._sel_i32(oh, pmr).numpy(),
         np.asarray(jwf._sel_i32(ohj, np.asarray(pmr.numpy()))))
     x = rng.integers(0, 256, (B, 35, sz, sz)).astype(np.uint8)
     x[0] = 255
     np.testing.assert_array_equal(
-        twf._compress_u8(oh, _t(x)).numpy(),
+        fn._compress_u8(oh, _t(x)).numpy(),
         np.asarray(jwf._compress_u8(ohj, jnp.asarray(x))))
 
 

@@ -16,7 +16,7 @@ import torch
 
 from hevce_tpu.models import wavefront as jwf
 from hevce_tpu_torch.models import wavefront as wf
-from hevce_tpu_torch.ops import satd
+from hevce_tpu_torch.ops import fused_node, satd
 from hevce_tpu_torch.utils import device as _device
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -164,7 +164,8 @@ def test_device_caches_key_on_the_normal_device(monkeypatch):
     assert _device.normal("cuda") == torch.device("cuda", 3)
     assert _device.normal("cuda:1") == torch.device("cuda", 1)
     assert _device.normal("cpu") == CPU
-    assert wf._scan_tensors(8, "cpu") is wf._scan_tensors(8, CPU)
+    assert fused_node._scan_tensors(8, "cpu") is \
+        fused_node._scan_tensors(8, CPU)
     assert satd._hadamard(8, "cpu") is satd._hadamard(8, CPU)
     seen = []
     built = _device.cached_per_device(lambda n, dev: seen.append(dev) or n)
