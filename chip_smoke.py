@@ -2320,9 +2320,7 @@ def main():
     mesh = timed("mesh", phase_mesh, torch, dev, card)
     encode_probe_launches = dict(probes.LAUNCHES)
     emit({"phase": "seconds", **took})
-    emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS,
-          "card_ms_event_timed": timing.EVENT_TIMED,
-          "reruns": timing.RERUNS})
+    emit({"phase": "timing", "lost_profiler_sessions": timing.LOST_SESSIONS})
 
     print(card, flush=True)
 

@@ -34,6 +34,7 @@ have no dependency across images, so the streams do not change.
 """
 import collections
 import functools
+import itertools
 import os
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 
 from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as Cst
-from hevce_tpu_torch.ops import fused_node, intra, rdcost
+from hevce_tpu_torch.ops import fused_node, rdcost
 # the rate model's units and the selectors the node functions still run
 # (the rest of the rate model lives beside the kernels that fuse it, X2, X3)
 from hevce_tpu_torch.ops.fused_node import (BIT, HALF, MODES, _i32, _sel_i32,
@@ -50,7 +51,7 @@ from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
 from hevce_tpu_torch.utils import graphs
-from hevce_tpu_torch.utils.tracing import PhaseTimer
+from hevce_tpu_torch.utils.tracing import CARD, PhaseTimer
 
 CTU = 32
 DC = 1
@@ -705,14 +706,18 @@ def _resolve_rmd(rmd):
 
 class _HostCopy:
     """Device->host copy of one output tensor, started without blocking
-    (into pinned memory on CUDA); numpy() waits for it."""
+    (into pinned memory on CUDA); numpy() waits for it. start: a timing
+    event recorded on the stream before the batch's uploads, which makes
+    the copy's own event a timing event too: card_s() is then the batch's
+    card seconds."""
 
-    def __init__(self, out: torch.Tensor):
+    def __init__(self, out: torch.Tensor, start=None):
+        self.start = start
         if out.is_cuda:
             self.host = torch.empty(out.shape, dtype=out.dtype,
                                     pin_memory=True)
             self.host.copy_(out, non_blocking=True)
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=start is not None)
             self.event.record()
         else:
             self.host, self.event = out, None
@@ -722,14 +727,37 @@ class _HostCopy:
             self.event.synchronize()
         return self.host.numpy()
 
+    def card_s(self):
+        """seconds on the card from `start` to the end of this copy (CUDA
+        events, read once the copy is waited for), or None untimed."""
+        if self.start is None:
+            return None
+        self.event.synchronize()
+        return self.start.elapsed_time(self.event) / 1e3
+
+
+def _add_card(timer, copy):
+    """add a fetched batch's card seconds (the card_s of its last
+    _HostCopy) to the timer's CARD total; untimed batches (CPU, mesh) add
+    nothing."""
+    s = copy.card_s()
+    if s is not None:
+        timer.totals[CARD] += s
+        timer.counts[CARD] += 1
+
 
 def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
-                    device=None, want_recon=True, fetch_qc=False, mesh=None):
+                    device=None, want_recon=True, fetch_qc=False, mesh=None,
+                    timer=None):
     """Upload + run the slice for one same-shaped batch through its shape's
     runner (_slice_runner_cache: on CUDA one graph replay per front step).
     Launches are queued on the current stream and the copies to the host
     start without blocking. Returns (out, meta) for _finish_batch (or
-    _fetch_lean).
+    _fetch_lean). timer's phases: "tile" (_slice_inputs), "upload" (the
+    copies to the device, with their wait behind work already queued) and
+    "enqueue" (the runner call and the start of the copies to the host). On
+    one CUDA device a timing event before the uploads and the last copy's
+    event time the batch on the card (_HostCopy.card_s).
     prices: optional (ctx, sig) per-image arrays (B,) of <<15 bin prices;
     None = the constant knobs. fetch_qc=False: out is the lean records'
     _HostCopy; True: (buf, side, plane) _HostCopys with qc16 left on the
@@ -737,29 +765,37 @@ def _dispatch_batch(images, qpd6: int, rmd=_RMD_ENV, prices=None,
     mesh: a sequence of devices (parallel/batch.make_mesh) that the batch
     is split over, one runner call per device, the outputs gathered on the
     first; B must be a multiple of its size, and device is not used."""
+    timer = timer if timer is not None else PhaseTimer()
     if mesh is None:
         dev = _device.resolve(device)
     else:
         mesh = pb.make_mesh(mesh)
         pb.check_split(len(images), mesh)
         dev = mesh[0]
-    meta, arrays = _slice_inputs(images, qpd6, prices)
+    with timer.phase("tile"):
+        meta, arrays = _slice_inputs(images, qpd6, prices)
     R, Cc = meta[6:]
-    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    start = None
+    if mesh is None and dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    with timer.phase("upload"):
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
     rmd = _resolve_rmd(rmd)
 
     def run(part, O, cv, sv):
         return _slice_runner_cache(qpd6, R, Cc, O.shape[0], rmd, fetch_qc,
                                    want_recon and fetch_qc,
                                    _device.normal(O.device))(O, cv, sv)
-    with torch.no_grad():
+    with timer.phase("enqueue"), torch.no_grad():
         out = pb.sharded(run, mesh, *args)
-    if fetch_qc:
-        buf, side, qc16, plane = out
-        out = (_HostCopy(buf), _HostCopy(side), qc16,
-               None if plane is None else _HostCopy(plane))
-    else:
-        out = _HostCopy(out)
+        if fetch_qc:        # side's copy last: its event ends the batch
+            buf, side, qc16, plane = out
+            buf = _HostCopy(buf)
+            plane = None if plane is None else _HostCopy(plane)
+            out = (buf, _HostCopy(side, start), qc16, plane)
+        else:
+            out = _HostCopy(out, start)
     return out, meta
 
 
@@ -786,21 +822,24 @@ def _slice_inputs(images, qpd6: int, prices=None):
 
 
 def _fetch_lean(out, meta, timer):
-    """Wait for one batch's records on the host and verify the checksum
-    tail. Returns the (B, R, Cc, 106) int8 record array."""
+    """Wait for one batch's records on the host ("fetch"; then the batch's
+    card seconds go to the timer's CARD total) and verify the checksum
+    tail ("verify"). Returns the (B, R, Cc, 106) int8 record array."""
     images, qpd6, ysz, xsz, yp, xp, R, Cc = meta
     B = len(images)
     with timer.phase("fetch"):
         flat = out.numpy()                           # (B, n + 4) int8
+    _add_card(timer, out)
     n = R * Cc * _REC_DEC
-    rec = flat[:, :n]
-    t = flat[:, n:].astype(np.int64) & 0xFF
-    ck_dev = ((t[:, 0] | (t[:, 1] << 8) | (t[:, 2] << 16) | (t[:, 3] << 24))
-              .astype(np.uint32).view(np.int32))
-    got = _host_cksum(rec)
-    if not np.array_equal(got, ck_dev):
-        raise IOError("fast-mode record transfer checksum mismatch: "
-                      f"{got} != {ck_dev}")
+    with timer.phase("verify"):
+        rec = flat[:, :n]
+        t = flat[:, n:].astype(np.int64) & 0xFF
+        ck_dev = ((t[:, 0] | (t[:, 1] << 8) | (t[:, 2] << 16)
+                   | (t[:, 3] << 24)).astype(np.uint32).view(np.int32))
+        got = _host_cksum(rec)
+        if not np.array_equal(got, ck_dev):
+            raise IOError("fast-mode record transfer checksum mismatch: "
+                          f"{got} != {ck_dev}")
     return rec.reshape(B, R, Cc, _REC_DEC)
 
 
@@ -839,15 +878,17 @@ def _finish_batch(out, meta, want_recon, timer, fetch_qc=False):
         side = side_c.numpy()
         buf = buf_c.numpy()
         hS = plane_c.numpy() if want_recon else None
-    got = _host_cksum(buf.reshape(B, -1))
-    if not np.array_equal(got, side[:, 0]):
-        raise IOError("fast-mode record transfer checksum mismatch: "
-                      f"{got} != {side[:, 0]}")
-    if want_recon:
-        gotS = _host_cksum(hS.reshape(B, -1))
-        if not np.array_equal(gotS, side[:, 2]):
-            raise IOError("fast-mode recon transfer checksum mismatch: "
-                          f"{gotS} != {side[:, 2]}")
+    _add_card(timer, side_c)
+    with timer.phase("verify"):
+        got = _host_cksum(buf.reshape(B, -1))
+        if not np.array_equal(got, side[:, 0]):
+            raise IOError("fast-mode record transfer checksum mismatch: "
+                          f"{got} != {side[:, 0]}")
+        if want_recon:
+            gotS = _host_cksum(hS.reshape(B, -1))
+            if not np.array_equal(gotS, side[:, 2]):
+                raise IOError("fast-mode recon transfer checksum mismatch: "
+                              f"{gotS} != {side[:, 2]}")
     qc_exact = {}
     with timer.phase("fetch"):           # rare |level| > 127 escapes
         for b in np.flatnonzero(side[:, 1]):
@@ -883,10 +924,11 @@ def encode_batch_fast(images, qpd6: int, timer=None, want_recon=True,
     of devices the batch is split over (_dispatch_batch); the batch must be
     a multiple of its size, and the streams are the unsplit ones."""
     timer = timer if timer is not None else PhaseTimer()
+    timer.tag = next(_BATCH_TAGS)
     with timer.phase("dispatch"):
         out, meta = _dispatch_batch(images, qpd6, rmd, device=device,
                                     want_recon=want_recon, fetch_qc=fetch_qc,
-                                    mesh=mesh)
+                                    mesh=mesh, timer=timer)
     return _finish_batch(out, meta, want_recon, timer, fetch_qc)
 
 
@@ -972,6 +1014,8 @@ def _shape_batches(images, batch: int):
 
 
 AHEAD = 4                             # batches in flight ahead of the drain
+# a batch's tag: the timer's `tag` while its phases run (utils/tracing)
+_BATCH_TAGS = itertools.count(1)
 
 
 def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
@@ -990,7 +1034,11 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
     the source batch's size, queued with the others, and the corrected
     stream is kept if its SSE is lower at no more than ADAPT_BPP_ALLOW extra
     bits per pixel (or no higher at fewer bits); the timer counts
-    'adapt_flagged' and 'adapt_kept' images. fetch_qc=True ships the
+    'adapt_flagged' and 'adapt_kept' images. The timer's phases: "prices"
+    (the pre pass's prediction), "dispatch" (_dispatch_batch: "tile",
+    "upload", "enqueue"), "fetch", "verify" and "pack"; each batch's phases
+    share a tag (the timer's `tag`), and on one CUDA device each fetched
+    batch adds its card seconds to the CARD total. fetch_qc=True ships the
     full records (encode_batch_fast). Returns (streams, recons) in input
     order; recons are None when want_recon=False. device=None runs on the
     card. mesh: a sequence of devices each batch is split over
@@ -1004,15 +1052,17 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
     adapt = mode == "post" and not fetch_qc and mesh is None
     streams = [None] * len(images)
     recons = [None] * len(images)
-    inflight = collections.deque()     # (out, meta, idx, flags or None)
+    inflight = collections.deque()  # (out, meta, tag, idx, flags or None)
 
-    def dispatch(idx, prices, want_recon=want_recon):
+    def dispatch(idx, prices, tag, want_recon=want_recon):
+        timer.tag = tag
         with timer.phase("dispatch"):
             out, meta = _dispatch_batch([images[i] for i in idx], qpd6, rmd,
                                         prices=prices, device=device,
                                         want_recon=want_recon,
-                                        fetch_qc=fetch_qc, mesh=mesh)
-        return out, meta
+                                        fetch_qc=fetch_qc, mesh=mesh,
+                                        timer=timer)
+        return out, meta, tag
 
     def flag_and_redispatch(idx, st):
         flags = []                     # (image index, pass-1 SSE, prices)
@@ -1027,11 +1077,13 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
         rows = flags + [flags[-1]] * (len(idx) - len(flags))
         prices = tuple(np.array([f[2][k] for f in rows], np.int32)
                        for k in (0, 1))
-        inflight.append(dispatch([f[0] for f in rows], prices, False)
+        inflight.append(dispatch([f[0] for f in rows], prices,
+                                 next(_BATCH_TAGS), False)
                         + ([f[0] for f in rows], flags))
 
     def drain_one():
-        out, meta, idx, flags = inflight.popleft()
+        out, meta, tag, idx, flags = inflight.popleft()
+        timer.tag = tag
         if flags is None:              # a primary batch
             if fetch_qc:
                 s, r = _finish_batch(out, meta, want_recon, timer, True)
@@ -1063,10 +1115,12 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
             drain_one()
         padded = idx if mesh is None else idx + [idx[-1]] * (-len(idx)
                                                              % len(mesh))
+        timer.tag = tag = next(_BATCH_TAGS)
         pr = None
         if mode == "pre":
-            pr = _predict_prices([images[i] for i in padded], qpd6)
-        inflight.append(dispatch(padded, pr) + (idx, None))
+            with timer.phase("prices"):
+                pr = _predict_prices([images[i] for i in padded], qpd6)
+        inflight.append(dispatch(padded, pr, tag) + (idx, None))
     while inflight:
         drain_one()
     return streams, recons
@@ -1097,11 +1151,13 @@ def encode_many_exact(images, qpd6: int, nthreads: int = 0, timer=None,
     recons = [None] * len(images)
     pending = []
     for idx in _shape_batches(images, batch):
+        timer.tag = tag = next(_BATCH_TAGS)
         with timer.phase("dispatch"):
             out, meta = _dispatch_batch([images[i] for i in idx], qpd6,
-                                        device=device)
-        pending.append((out, meta, idx))
-    for out, meta, idx in pending:
+                                        device=device, timer=timer)
+        pending.append((out, meta, tag, idx))
+    for out, meta, tag, idx in pending:
+        timer.tag = tag
         hints = np.ascontiguousarray(_fetch_lean(out, meta, timer))
         with timer.phase("host_rdo"):
             s, r = native.encode_many_native(
@@ -1110,44 +1166,3 @@ def encode_many_exact(images, qpd6: int, nthreads: int = 0, timer=None,
             streams[i], recons[i] = s[j], r[j]
     return streams, recons
 
-
-@functools.lru_cache(maxsize=None)
-def front_macs_per_ctu(rmd=None) -> int:
-    """Lower-bound multiply-accumulate count of the front core per CTU: the
-    constant-matrix intra-prediction products plus the digit-split
-    transform products (5 forward, 6 inverse per stage pair, the JAX
-    package's ops/xform.exact_matmul digit counts). Elementwise RDOQ / SSE /
-    rate work is left out, so a utilization figure built on it is a lower
-    bound. rmd=(K, T) counts the RMD core (SATD Hadamard products added,
-    the pipeline on K modes, the TU-split on T lanes)."""
-    def predict(sz):
-        w = intra._angular_matrix(sz)              # (35, sz*sz, n_border)
-        return int(w.shape[0]) * int(w.shape[1]) * int(w.shape[2])
-
-    def xf(sz, m=MODES):                           # fwd 5 + inv 6 digits
-        return 11 * m * sz ** 3
-
-    def satd(sz):                                  # 2 Hadamard products,
-        return MODES * 4 * sz ** 3                 # 2 int8 digits each
-
-    if rmd is None:
-        def node(sz):                              # _eval_node
-            h = sz // 2
-            return predict(sz) + xf(sz) + 4 * (predict(h) + xf(h))
-
-        pu4 = predict(4) + xf(4)                   # NxN PUs 1-3 (PU0 = sub0)
-        return 16 * (node(8) + 3 * pu4) + 4 * node(16) + node(32)
-
-    K, T = rmd
-    K, T = min(K, MODES), min(min(T, K), MODES)
-
-    def node(sz):                                  # _eval_node_rmd
-        h = sz // 2
-        # all-35 prediction feeds the SATD ranking; the pipeline runs on K
-        # modes; the TU-split on T lanes, each predicting all 35 modes from
-        # its own chained borders
-        return (predict(sz) + satd(sz) + xf(sz, K)
-                + 4 * (T * predict(h) + xf(h, T)))
-
-    pu4 = predict(4) + xf(4)
-    return 16 * (node(8) + 4 * pu4) + 4 * node(16) + node(32)

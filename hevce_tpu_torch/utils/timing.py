@@ -28,13 +28,9 @@ PROFILE_PAD_S = 0.01
 # spin cycles per second of host enqueue in busy_events_ms: the H100's
 # 1.98 GHz boost clock, rounded up, so the spin outlasts the enqueue
 SPIN_CYCLES_PER_S = 2e9
-# profiler sessions that recorded no kernel or lost launches, and card_ms
-# calls timed by busy_events_ms, since the process began
+# profiler sessions that recorded no kernel or lost launches, since the
+# process began
 LOST_SESSIONS = 0
-EVENT_TIMED = 0
-# why card_kernels ran sessions again, the first RERUNS_KEPT of them
-RERUNS = []
-RERUNS_KEPT = 20
 
 
 def cuda_ms(fn, reps):
@@ -143,19 +139,15 @@ def card_kernels(fn, whole=lambda kernels: True):
     for every kernel the card ran, complete). A session that recorded no
     kernel, recorded fewer launches of one of the port's kernels than its
     wrapper made, or fails `whole` is run again, its window opened 10 times
-    earlier each time (counted in LOST_SESSIONS, the first RERUNS_KEPT
-    reasons kept in RERUNS); after PROFILE_TRIES such sessions the last one
-    comes back with complete False. fn must be one that can run again."""
+    earlier each time (counted in LOST_SESSIONS); after PROFILE_TRIES such
+    sessions the last one comes back with complete False. fn must be one
+    that can run again."""
     global LOST_SESSIONS
     for attempt in range(PROFILE_TRIES):
         kernels, lost = profiled(fn, PROFILE_PAD_S * 10 ** attempt)
         if kernels and not lost and whole(kernels):
             return kernels, True
         LOST_SESSIONS += 1
-        if len(RERUNS) < RERUNS_KEPT:
-            RERUNS.append({"kernels": {name[:48]: n for name, _, n
-                                       in kernels[:8]},
-                           "lost": lost, "whole": whole(kernels)})
     return kernels, False
 
 
@@ -166,15 +158,12 @@ def card_ms(fn, reps):
     `reps`; a session where one is not, or where the port's wrappers
     launched more than it recorded, lost launches (or held one-time work of
     a first call) and is run again (card_kernels); after PROFILE_TRIES of
-    them the time is busy_events_ms's, said on stderr and counted in
-    EVENT_TIMED."""
-    global EVENT_TIMED
+    them the time is busy_events_ms's, said on stderr."""
     kernels, complete = card_kernels(
         lambda: [fn() for _ in range(reps)],
         lambda ks: all(n % reps == 0 for _, _, n in ks))
     if complete:
         return sum(us for _, us, _ in kernels) / 1e3 / reps
-    EVENT_TIMED += 1
     print(f"timing.card_ms: {PROFILE_TRIES} profiler sessions recorded no "
           f"kernel or lost launches; timed with CUDA events behind a spin "
           f"kernel",

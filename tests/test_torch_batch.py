@@ -15,6 +15,7 @@ from hevce_tpu_torch.models import wavefront as wf
 from hevce_tpu_torch.ops import fused_eval
 from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.parallel import lockstep
+from hevce_tpu_torch.utils.tracing import CARD, PhaseTimer
 
 # the test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -80,10 +81,22 @@ def test_fast_mesh_equals_unsplit(golden, monkeypatch):
         seen.append(len(images))
         return dispatch(images, *a, **kw)
     monkeypatch.setattr(wf, "_dispatch_batch", spy)
-    got = wf.encode_many_fast(small, 2, batch=3, mesh=MESH)
+    mesh_timer = PhaseTimer(spans=[])
+    got = wf.encode_many_fast(small, 2, batch=3, mesh=MESH, timer=mesh_timer)
     assert seen == [4]
-    want = wf.encode_many_fast(small, 2, batch=3, device="cpu")
+    timer = PhaseTimer(spans=[])
+    want = wf.encode_many_fast(small, 2, batch=3, device="cpu", timer=timer)
     assert got[0] == want[0] and len(got[1]) == 3
+    # the span tree of the one batch (HEVCE_ADAPT=pre): no card time on the
+    # CPU, nor on a mesh, whose spans are the same
+    tree = [("prices", None), ("dispatch", None), ("tile", 1), ("upload", 1),
+            ("enqueue", 1), ("fetch", None), ("verify", None), ("pack", None)]
+    for t in (timer, mesh_timer):
+        assert [(s[0], s[3]) for s in t.spans] == tree
+        assert len({s[4] for s in t.spans}) == 1 and t.spans[0][4] is not None
+        assert all(s[1] <= s[2] for s in t.spans)
+        assert CARD not in t.totals
+    assert timer.spans[0][4] != mesh_timer.spans[0][4]
 
 
 def test_adapt_post_stays_single_pass_with_a_mesh(monkeypatch):

@@ -11,6 +11,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from hevce_tpu_torch.tools import (bench_fused, bench_k2, cuda_probe,
                                    profile_front)
 from hevce_tpu_torch.utils import graphs, timing
 from hevce_tpu_torch.utils.imageio import write_pgm
-from hevce_tpu_torch.utils.tracing import PhaseTimer, device_trace
+from hevce_tpu_torch.utils.tracing import CARD, PhaseTimer, device_trace
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -179,6 +180,29 @@ def test_exact_and_post_on_card(cuda_device, monkeypatch):
     card = wf.encode_many_fast(imgs, 2, timer=timer, device=cuda_device)
     assert timer.counts["adapt_flagged"] == 1
     assert card[0] == wf.encode_many_fast(imgs, 2, device="cpu")[0]
+
+
+@pytest.mark.cuda
+def test_card_seconds_of_each_batch_from_cuda_events(cuda_device):
+    """each fetched batch adds its card seconds (a timing event before its
+    uploads to its records' copy) to the timer's CARD total: more than 0 and
+    no more than the call's wall; a mesh keeps the spans and no card time."""
+    rng = np.random.default_rng(15)
+    imgs = [rng.integers(0, 256, (64, 96)).astype(np.uint8) for _ in range(3)]
+    wf.encode_many_fast(imgs, 2, batch=2, device=cuda_device)   # captures
+    torch.cuda.synchronize()
+    timer = PhaseTimer(spans=[])
+    t0 = time.perf_counter()
+    wf.encode_many_fast(imgs, 2, batch=2, timer=timer, device=cuda_device)
+    wall = time.perf_counter() - t0
+    assert 0 < timer.totals[CARD] <= wall and timer.counts[CARD] == 2
+    names = [s[0] for s in timer.spans]
+    assert names.count("upload") == names.count("enqueue") == 2
+    assert len({s[4] for s in timer.spans}) == 2
+    mesh = PhaseTimer(spans=[])
+    wf.encode_many_fast(imgs[:2], 2, timer=mesh,
+                        mesh=(cuda_device, cuda_device))
+    assert CARD not in mesh.totals and "enqueue" in mesh.totals
 
 
 def _k2_inputs(lanes, L, P, seed, strings="mixed", qpd6=None):

@@ -580,11 +580,12 @@ def test_profiler_sessions_keep_cupti_subscribed(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("short", [False, True])
 @pytest.mark.parametrize("empty", [0, 1, timing.PROFILE_TRIES])
-def test_card_ms_runs_an_empty_profiler_session_again(monkeypatch, empty,
-                                                      short):
+def test_card_ms_runs_an_empty_profiler_session_again(monkeypatch, capsys,
+                                                      empty, short):
     """`empty` sessions record no kernel (or, `short`, one of 3 calls'
     launches of "c" is lost); then card_ms reads the profiler's 600 us over
-    3 calls, or after PROFILE_TRIES such sessions the CUDA events' time."""
+    3 calls, or after PROFILE_TRIES such sessions the CUDA events' time,
+    and says so on stderr."""
     sessions, calls = [], []
     lost = [("k", 400.0, 3), ("c", 130.0, 2)] if short else []
 
@@ -598,13 +599,14 @@ def test_card_ms_runs_an_empty_profiler_session_again(monkeypatch, empty,
                         lambda fn, pad_s: (kernels(fn), {}))
     monkeypatch.setattr(timing, "busy_events_ms", lambda fn, reps: 7.0)
     monkeypatch.setattr(timing, "LOST_SESSIONS", 0)
-    monkeypatch.setattr(timing, "EVENT_TIMED", 0)
     ms = timing.card_ms(lambda: calls.append(1), 3)
     fell_back = empty == timing.PROFILE_TRIES
     assert ms == pytest.approx(7.0 if fell_back else 0.2)
     assert len(sessions) == min(empty + 1, timing.PROFILE_TRIES)
     assert len(calls) == 3 * len(sessions)
-    assert (timing.LOST_SESSIONS, timing.EVENT_TIMED) == (empty, fell_back)
+    assert timing.LOST_SESSIONS == empty
+    said = "timed with CUDA events" in capsys.readouterr().err
+    assert said == fell_back
 
 
 class _FakeProfile:

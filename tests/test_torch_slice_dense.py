@@ -1,5 +1,5 @@
 """The port's dense (rmd=None) fast mode against the JAX package's, on the
-CPU, and front_macs_per_ctu.
+CPU.
 
 With rmd=None every node searches all 35 modes in both TU layouts, and
 each 8x8 leaf's NxN PU0 reuses its TU-split's first sub-TU eval. The lean
@@ -84,11 +84,6 @@ def test_rmd_off_resolves_to_dense(monkeypatch, value):
         monkeypatch.setenv("HEVCE_RMD", value)
         assert twf._resolve_rmd(twf._RMD_ENV) is None
         assert jwf._resolve_rmd(jwf._RMD_ENV) is None
-
-
-@pytest.mark.parametrize("rmd", [None, (12, 4), (35, 35), (40, 50)])
-def test_front_macs_per_ctu_matches_jax(rmd):
-    assert twf.front_macs_per_ctu(rmd) == jwf.front_macs_per_ctu(rmd)
 
 
 def test_dense_leaf_sub0_is_the_nxn_pu0_eval():
