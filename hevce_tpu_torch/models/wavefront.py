@@ -33,9 +33,12 @@ batch's slice runs once per mesh device on its part of the images: fronts
 have no dependency across images, so the streams do not change.
 """
 import collections
+import concurrent.futures
 import functools
 import itertools
 import os
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -843,34 +846,102 @@ def _fetch_lean(out, meta, timer):
     return rec.reshape(B, R, Cc, _REC_DEC)
 
 
+# the process's host threads that pack a batch's images at once
+# (_pack_each): (pid, executor), made on first use; a forked child makes its
+# own, since the parent's threads are not in it
+_pack_pool = None
+_pack_pool_lock = threading.Lock()
+
+
+def _usable_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:                # no affinity on this platform
+        return os.cpu_count() or 1
+
+
+def _pack_width(n: int) -> int:
+    """threads that pack a batch of n images: one an image, up to the
+    usable cores. One while HEVCE_PACK_STATS is set: the pack's calibration
+    dump appends a frame per image to one file."""
+    if os.environ.get("HEVCE_PACK_STATS"):
+        return 1
+    return min(n, _usable_cores())
+
+
+def _pack_executor():
+    global _pack_pool
+    with _pack_pool_lock:
+        if _pack_pool is None or _pack_pool[0] != os.getpid():
+            _pack_pool = (os.getpid(), concurrent.futures.ThreadPoolExecutor(
+                _usable_cores(), thread_name_prefix="hevce-pack"))
+        return _pack_pool[1]
+
+
+def _pack_each(pack, n: int, timer):
+    """[pack(b) for b in range(n)], in that order, packed at once on
+    _pack_width(n) threads of the pool: native's packs drop the GIL and keep
+    their state thread_local. Width 1 packs inline on the calling thread.
+    The pool's threads never touch the timer; it counts the images they
+    pack as 'pack_pooled'. A pack's exception is raised here once every
+    thread has stopped, and nothing is returned."""
+    width = _pack_width(n)
+    if width <= 1:
+        return [pack(b) for b in range(n)]
+    todo = queue.SimpleQueue()
+    for b in range(n):
+        todo.put(b)
+    out = [None] * n
+
+    def work():
+        while True:
+            try:
+                b = todo.get_nowait()
+            except queue.Empty:
+                return
+            out[b] = pack(b)
+    pool = _pack_executor()
+    futures = [pool.submit(work) for _ in range(width)]
+    concurrent.futures.wait(futures)
+    for f in futures:
+        f.result()
+    timer.counts["pack_pooled"] += n
+    return out
+
+
 def _pack_lean(rec, meta, want_recon, timer, stats_out=None):
     """Host pack from decision records (native.pack_forest_img recomputes
-    quant levels + recon from the original images). stats_out: optional
-    list that receives one (payload bits, context bins, bypass bins, recon)
-    per image (native.last_pack_stats; the HEVCE_ADAPT=post pass reads the
-    bits and needs the recon even when the caller asked for none)."""
+    quant levels + recon from the original images), the batch's images at
+    once (_pack_each); the "pack" phase is the batch's wall. stats_out:
+    optional list that receives one (payload bits, context bins, bypass
+    bins, recon) per image in input order (native.last_pack_stats, read on
+    the thread that packed; the HEVCE_ADAPT=post pass reads the bits and
+    needs the recon even when the caller asked for none)."""
     images, qpd6 = meta[0], meta[1]
-    streams, recons = [], []
+
+    def pack(b):
+        s, r = native.pack_forest_img(
+            rec[b, :, :, _REC_LAY], rec[b, :, :, _REC_PM],
+            rec[b, :, :, _REC_PM4], images[b], qpd6)
+        st = None if stats_out is None else native.last_pack_stats() + (r,)
+        return s, (r if want_recon else None), st
     with timer.phase("pack"):
-        for b in range(len(images)):
-            s, r = native.pack_forest_img(
-                rec[b, :, :, _REC_LAY], rec[b, :, :, _REC_PM],
-                rec[b, :, :, _REC_PM4], images[b], qpd6)
-            streams.append(s)
-            recons.append(r if want_recon else None)
-            if stats_out is not None:
-                stats_out.append(native.last_pack_stats() + (r,))
-    return streams, recons
+        packed = _pack_each(pack, len(images), timer)
+    if stats_out is not None:
+        stats_out.extend(p[2] for p in packed)
+    return [p[0] for p in packed], [p[1] for p in packed]
 
 
-def _finish_batch(out, meta, want_recon, timer, fetch_qc=False):
+def _finish_batch(out, meta, want_recon, timer, fetch_qc=False,
+                  stats_out=None):
     """Fetch one dispatched batch's results, verify the transfer checksums
-    and pack the streams on the host. fetch_qc must match the dispatch; the
-    full records are packed from their quant levels (native.pack_forest),
-    and the recon is the device's."""
+    and pack the streams on the host (stats_out: _pack_lean's, lean records
+    only). fetch_qc must match the dispatch; the full records are packed
+    from their quant levels (native.pack_forest), and the recon is the
+    device's."""
     if not fetch_qc:
         return _pack_lean(_fetch_lean(out, meta, timer), meta, want_recon,
-                          timer)
+                          timer, stats_out)
     images, qpd6, ysz, xsz, yp, xp, R, Cc = meta
     B = len(images)
     buf_c, side_c, qc16, plane_c = out
@@ -897,15 +968,15 @@ def _finish_batch(out, meta, want_recon, timer, fetch_qc=False):
                 raise IOError("fast-mode qc16 transfer checksum mismatch "
                               f"on image {b}")
             qc_exact[int(b)] = q16.astype(np.int32)
-    streams, recons = [], []
+
+    def pack(b):
+        return native.pack_forest(
+            buf[b, :, :, _REC_LAY], buf[b, :, :, _REC_PM],
+            buf[b, :, :, _REC_PM4], qc_exact.get(b, buf[b, :, :, _REC_QC8]),
+            ysz, xsz, qpd6)
     with timer.phase("pack"):
-        for b in range(B):
-            qc = qc_exact.get(b, buf[b, :, :, _REC_QC8])
-            streams.append(native.pack_forest(
-                buf[b, :, :, _REC_LAY], buf[b, :, :, _REC_PM],
-                buf[b, :, :, _REC_PM4], qc, ysz, xsz, qpd6))
-            recons.append(hS[b] if want_recon else None)
-    return streams, recons
+        streams = _pack_each(pack, B, timer)
+    return streams, [hS[b] if want_recon else None for b in range(B)]
 
 
 # ---------------------------------------------------------------- drivers
@@ -1036,7 +1107,9 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
     bits per pixel (or no higher at fewer bits); the timer counts
     'adapt_flagged' and 'adapt_kept' images. The timer's phases: "prices"
     (the pre pass's prediction), "dispatch" (_dispatch_batch: "tile",
-    "upload", "enqueue"), "fetch", "verify" and "pack"; each batch's phases
+    "upload", "enqueue"), "fetch", "verify" and "pack" (the wall of a
+    batch's images packed at once on host threads, _pack_each, which counts
+    them as 'pack_pooled'; a batch of one packs inline); each batch's phases
     share a tag (the timer's `tag`), and on one CUDA device each fetched
     batch adds its card seconds to the CARD total. fetch_qc=True ships the
     full records (encode_batch_fast). Returns (streams, recons) in input
@@ -1085,20 +1158,15 @@ def encode_many_fast(images, qpd6: int, batch: int = 8, timer=None,
         out, meta, tag, idx, flags = inflight.popleft()
         timer.tag = tag
         if flags is None:              # a primary batch
-            if fetch_qc:
-                s, r = _finish_batch(out, meta, want_recon, timer, True)
-            else:
-                st = [] if adapt else None
-                s, r = _pack_lean(_fetch_lean(out, meta, timer), meta,
-                                  want_recon, timer, stats_out=st)
+            st = [] if adapt else None
+            s, r = _finish_batch(out, meta, want_recon, timer, fetch_qc, st)
             for j, i in enumerate(idx):
                 streams[i], recons[i] = s[j], r[j]
             if adapt:
                 flag_and_redispatch(idx, st)
             return
         st2 = []                       # a corrective batch
-        s2, _ = _pack_lean(_fetch_lean(out, meta, timer), meta, False, timer,
-                           stats_out=st2)
+        s2, _ = _finish_batch(out, meta, False, timer, stats_out=st2)
         for j, (i, sse1, _) in enumerate(flags):
             sse2 = _sse(images[i], st2[j][3])
             dbits = (len(s2[j]) - len(streams[i])) * 8

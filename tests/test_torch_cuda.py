@@ -205,6 +205,30 @@ def test_card_seconds_of_each_batch_from_cuda_events(cuda_device):
     assert CARD not in mesh.totals and "enqueue" in mesh.totals
 
 
+@pytest.mark.cuda
+def test_pooled_pack_on_card_equals_serial(cuda_device, monkeypatch):
+    """encode_many_fast at batch 8 on the card packs the batch's images on
+    the host's pool of threads, and gives the streams and recons of a run
+    forced to pack them one after another on the calling thread."""
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[0:64, 0:96]
+    imgs = [rng.integers(0, 256, (64, 96)).astype(np.uint8) for _ in range(6)]
+    imgs += [((yy * 3 + xx * 2) % 256).astype(np.uint8),
+             np.full((64, 96), 128, np.uint8)]
+    timer = PhaseTimer()
+    pooled = wf.encode_many_fast(imgs, 2, batch=8, timer=timer,
+                                 device=cuda_device)
+    assert timer.counts["pack_pooled"] == (8 if wf._pack_width(8) > 1 else 0)
+    monkeypatch.setattr(wf, "_pack_width", lambda n: 1)
+    timer = PhaseTimer()
+    serial = wf.encode_many_fast(imgs, 2, batch=8, timer=timer,
+                                 device=cuda_device)
+    assert timer.counts["pack_pooled"] == 0
+    assert pooled[0] == serial[0]
+    for a, b in zip(pooled[1], serial[1]):
+        assert np.array_equal(a, b)
+
+
 def _k2_inputs(lanes, L, P, seed, strings="mixed", qpd6=None):
     """op strings over a P-slot palette, nop-padded past each lane's count
     (lane 0 has none, lane 1 all L): "mixed" random kinds plus runs of
