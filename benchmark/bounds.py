@@ -149,7 +149,10 @@ class Recorder:
                ("fused_node", "preselect", "x2"),
                ("fused_node", "rate_cost", "x3"))
 
-    def __init__(self):
+    def __init__(self, modules, runner_cls):
+        """modules maps "fused_eval" and "fused_node" to the port's modules,
+        runner_cls is its _SliceRunner."""
+        self.modules, self.runner_cls = modules, runner_cls
         self.step_ms = {}
         self._key = None
 
@@ -160,9 +163,9 @@ class Recorder:
         self.step_ms[self._key] = self.step_ms.get(self._key, 0.0) + ms
 
     @contextlib.contextmanager
-    def installed(self, modules, runner_cls):
-        """record while the block runs: modules maps "fused_eval" and
-        "fused_node" to the port's modules, runner_cls is its _SliceRunner."""
+    def installed(self):
+        """record while the block runs."""
+        modules, runner_cls = self.modules, self.runner_cls
         saved = []
 
         def wrap(mod, attr, name):

@@ -7,10 +7,10 @@ would slow the host path that the stretch measures. Nothing is written to
 disk: the sums are taken from the profiler's raw events (key_averages()
 would first build an operator tree, which takes minutes over the ~4,500
 kernels of each replayed front step). The stretch's window and the host's
-phases (the PhaseTimer phases of encode_many_fast, kept by the harness's
-timer) are read from time.time_ns(), the clock that the profiler puts the
-card's timestamps on, so that each idle gap of the card is named by the
-phase open on the host during it.
+phases (the spans of the port's utils/tracing.PhaseTimer that the driven
+program fills) are read from time.time_ns(), the clock that the profiler
+puts the card's timestamps on, so that each idle gap of the card is named by
+the phase open on the host during it.
 """
 import contextlib
 import os
@@ -23,8 +23,6 @@ from torch.profiler import ProfilerActivity, profile
 # timestamps can run ahead of the host clock that opens the profiler's
 # window, which then drops the first kernels (utils/timing.PROFILE_PAD_S)
 PAD_S = 0.01
-# the port's hand-written kernels, by a substring of their names
-PORT_KERNELS = ("k1_kernel", "x1_predict", "x2_preselect", "x3_rate_cost")
 
 
 def _is_copy(name):
@@ -52,15 +50,16 @@ def _union(intervals):
     return out
 
 
-def reduce(prof, window, phases, top: int = 10):
+def reduce(prof, window, phases, port_kernels, top: int = 10):
     """the stretch's readings: window (w0, w1) in time.time_ns() ns, phases
-    [(name, start ns, end ns)] of the host. window_s (the stretch's
-    length), busy_s (the union of the card's operations inside it),
-    outside (the card's operations that lie wholly outside it: none, when
-    the two clocks agree), kernels {name: [us, n]} (kernels only, copies
-    and fills apart), the port's kernels' and the other kernels' card us,
-    and the longest idle gaps [(phase, seconds)] and the top kernels
-    [(name, seconds)]."""
+    the host's PhaseTimer spans [(name, start ns, end ns, parent, tag)],
+    port_kernels the port's hand-written kernels by a substring of their
+    names. window_s (the stretch's length), busy_s (the union of the card's
+    operations inside it), outside (the card's operations that lie wholly
+    outside it: none, when the two clocks agree), kernels {name: [us, n]}
+    (kernels only, copies and fills apart), the port's kernels' and the
+    other kernels' card us, and the longest idle gaps [(phase, seconds)]
+    and the top kernels [(name, seconds)]."""
     w0, w1 = window
     kernels, busy_iv, outside = {}, [], 0
     for e in prof.profiler.kineto_results.events():
@@ -88,9 +87,10 @@ def reduce(prof, window, phases, top: int = 10):
             gaps.append((prev, s))
         prev = max(prev, e)
     longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
-    labelled = [(g1 - g0, _label(g0, g1, phases)) for g0, g1 in longest]
+    closed = _close_order(phases)
+    labelled = [(g1 - g0, _label(g0, g1, closed)) for g0, g1 in longest]
     port_us = sum(us for n, (us, _) in kernels.items()
-                  if any(p in n for p in PORT_KERNELS))
+                  if any(p in n for p in port_kernels))
     glue_us = sum(us for n, (us, _) in kernels.items()) - port_us
     top_k = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
     return {"window_s": (w1 - w0) / 1e9, "busy_s": busy_ns / 1e9,
@@ -101,18 +101,29 @@ def reduce(prof, window, phases, top: int = 10):
             "idle_gaps": [[lab, ns / 1e9] for ns, lab in labelled]}
 
 
+def _close_order(spans):
+    """spans [(name, start, end, parent, tag)], kept in the order they
+    opened, in the order they closed: a phase after the phases inside it."""
+    depth = []
+    for _, _, _, parent, _ in spans:
+        depth.append(0 if parent is None else depth[parent] + 1)
+    order = sorted(range(len(spans)), key=lambda i: (spans[i][2], -depth[i]))
+    return [spans[i] for i in order]
+
+
 def _label(g0, g1, phases):
-    """the host phase that overlaps the gap (g0, g1) most, or "host" when
-    none is open (the harness's own work between calls)."""
+    """the host phase that overlaps the gap (g0, g1) most, the first in
+    `phases` where several do, or "host" when none is open (the harness's
+    own work between calls)."""
     best, lab = 0, "host"
-    for name, s, e in phases:
+    for name, s, e, *_ in phases:
         ov = min(e, g1) - max(s, g0)
         if ov > best:
             best, lab = ov, name
     return lab
 
 
-def port_counts(kernels):
+def port_counts(kernels, port_kernels):
     """{substring: launches recorded} of the port's kernels."""
     return {p: sum(n for name, (_, n) in kernels.items() if p in name)
-            for p in PORT_KERNELS}
+            for p in port_kernels}

@@ -4,18 +4,22 @@
                              --trace <0|1>
 
 Everything is found by name: the cell in BENCHMARK.json, its configuration
-at the file that BENCHMARK.json names, its traffic mix at
-traffic/<traffic>.json, each end-to-end metric's reader at
+at the file that BENCHMARK.json names, the driver of the part of the port it
+runs at drivers/<driver>.py (the configuration's "driver", "fast" where it
+names none; drivers/fast.py lists what a driver provides), its traffic mix
+at traffic/<traffic>.json, each end-to-end metric's reader at
 end_to_end/<metric>.py and each per-layer metric's at
 layer_metrics/<metric>.py (a module with read(readings) -> number or None;
-None leaves the metric out of the line). A new configuration, mix or metric
-is a new file and an entry in BENCHMARK.json.
+None leaves the metric out of the line). A new configuration, driver, mix or
+metric is a new file and an entry in BENCHMARK.json.
 
 A run: set-up (the port's builds, the pool of images, one warm-up call of
-every batch shape the mix makes, which captures the slice runners), then a
-closed loop of calls for --seconds, then with --trace 1 a profiled stretch
-of whole calls, then the correctness check (check.py), and the last line of
-standard output: one JSON object.
+every batch shape the mix makes, which builds what the driven path
+captures), then a closed loop of calls for --seconds, then with --trace 1 a
+profiled stretch of whole calls, then the correctness check (check.py) of
+the streams against the driver's plain reference, and the last line of
+standard output: one JSON object. Every call is timed by the port's
+utils/tracing.PhaseTimer; the window keeps its phase totals and counts.
 """
 import argparse
 import collections
@@ -33,10 +37,12 @@ import numpy as np
 
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
-# the program's own knobs: the configuration sets what the cell runs, and
-# nothing from the caller's environment may change it
-PROGRAM_KNOBS = ("HEVCE_ADAPT", "HEVCE_RMD", "HEVCE_CTX_BIT",
-                 "HEVCE_SIG_ZERO", "HEVCE_ASYNC_FETCH")
+# the program's own knobs, every variable of this prefix: the configuration
+# sets what the cell runs, and nothing from the caller's environment may
+# change it
+PROGRAM_KNOBS = "HEVCE_"
+# the driver of a configuration that names none
+DEFAULT_DRIVER = "fast"
 FORBIDDEN = ("jax", "jaxlib", "flax", "hevce_tpu")
 # the folder of each kind of metric's readers
 READERS = {"end_to_end": "end_to_end", "per_layer": "layer_metrics"}
@@ -50,9 +56,9 @@ class Fail(Exception):
 
 class Bench:
     """BENCHMARK.json and the files it names, resolved by name under
-    `bench_dir` (the folder that holds configs/, traffic/, end_to_end/ and
-    layer_metrics/) and `root` (where BENCHMARK.json and the configuration
-    files' paths start)."""
+    `bench_dir` (the folder that holds configs/, drivers/, traffic/,
+    end_to_end/ and layer_metrics/) and `root` (where BENCHMARK.json and the
+    configuration files' paths start)."""
 
     def __init__(self, root=ROOT, bench_dir=BENCH):
         self.root, self.dir = pathlib.Path(root), pathlib.Path(bench_dir)
@@ -81,11 +87,14 @@ class Bench:
         path = self.dir / kind / f"{name}.py"
         if not path.exists():
             raise Fail(f"no reader {path} for metric {name!r}")
-        spec = importlib.util.spec_from_file_location(
-            f"bench_{kind}_{name}".replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(path, f"bench_{kind}_{name}").read
+
+    def driver(self, stem):
+        """the module drivers/<stem>.py."""
+        path = self.dir / "drivers" / f"{stem}.py"
+        if not path.exists():
+            raise Fail(f"no driver {path}")
+        return _load(path, f"bench_driver_{stem}")
 
     def metrics(self, kind, cell):
         """the metric entries of `kind` ("end_to_end" or "per_layer") that
@@ -103,70 +112,48 @@ class Bench:
                     else m["moves"] in names)]
 
 
-# -------------------------------------------------------------- the timer
-
-class SpanTimer:
-    """encode_many_fast's timer (the port's PhaseTimer interface: phase(),
-    totals, counts): wall seconds a phase; while `spans` is a list, each
-    phase is also kept there as (name, start ns, end ns) on the clock of
-    time.time_ns(), the profiler's clock, to name the card's idle gaps."""
-
-    def __init__(self):
-        self.totals = collections.defaultdict(float)
-        self.counts = collections.defaultdict(int)
-        self.spans = None
-
-    @contextlib.contextmanager
-    def phase(self, name):
-        t0, n0 = time.perf_counter(), time.time_ns()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            if self.spans is not None:
-                self.spans.append((name, n0, time.time_ns()))
-
-
 # -------------------------------------------------------------------- run
 
 class Run:
-    """One run of one cell: set-up, window, stretch, check."""
+    """One run of one cell: set-up, window, stretch, check. The cell's
+    driver (drivers/<stem>.py) makes the calls and works out the reference;
+    program holds what its import_program() gave."""
 
     def __init__(self, bench: Bench, cell: str, seed: int, device="cuda"):
         self.seed, self.device = seed, device
         self.cell = bench.cell(cell)
         self.config = bench.config(self.cell["config"])
         self.traffic = bench.traffic(self.cell["traffic"])
-        self.qpd6 = int(self.config["qpd6"])
-        rmd = self.config["rmd"]
-        self.rmd = None if rmd is None else tuple(rmd)
-        if self.config["adapt"] != "pre" or self.config["records"] != "lean":
-            raise Fail("the reference works out HEVCE_ADAPT=pre with lean "
-                       "records only")
-        os.environ["HEVCE_ADAPT"] = self.config["adapt"]
+        self.driver = bench.driver(self.config.get("driver", DEFAULT_DRIVER))
+        self.opts = self.driver.prepare(self.config)
+        self.program = None
         self.readings = {"setup_s": None, "window": None, "trace": None}
 
     # ---- set-up
-    def setup(self, wavefront, record=None):
+    def setup(self, recorder=None):
         """the pool, and one warm-up call of every batch shape (builds the
-        port's libraries and captures its slice runners); record: an
-        optional bounds.Recorder installed around the warm-up."""
+        port's libraries and what the driven path captures); recorder: the
+        driver's optional recorder, installed around the warm-up."""
         from benchmark import loadgen
-        self.wf = wavefront
         self.load = loadgen.Load(self.config, self.traffic, self.seed)
-        ctx = record() if record is not None else contextlib.nullcontext()
+        ctx = (recorder.installed() if recorder is not None
+               else contextlib.nullcontext())
         with ctx:
             for idx in self.load.warmup_calls():
-                self.encode(idx, SpanTimer())
+                self.encode(idx, _timer())
         self.sync()
 
     def encode(self, idx, timer):
-        streams, _ = self.wf.encode_many_fast(
-            [self.load.pool[i] for i in idx], self.qpd6,
-            batch=self.load.batch, timer=timer, want_recon=False,
-            rmd=self.rmd, device=self.device)
-        return streams
+        return self.driver.encode(self, idx, timer)
+
+    def work(self, calls):
+        """{name: sum over the calls} of the driver's work(load, idx);
+        every name, 0 where there is no call."""
+        total = dict(self.driver.work(self.load, []))
+        for idx in calls:
+            for k, v in self.driver.work(self.load, idx).items():
+                total[k] += v
+        return total
 
     def sync(self):
         if self.device != "cpu":
@@ -179,8 +166,8 @@ class Run:
         `seconds` have passed; the window ends with the last call. A call
         that raises, or returns another number of streams than it was
         given images, or no stream for one of them, is failed: its images
-        count in `failed`, and its pixels, fronts and latency nowhere."""
-        timer = SpanTimer()
+        count in `failed`, and its pixels, work and latency nowhere."""
+        timer = _timer()
         calls, streams = [], collections.defaultdict(list)
         failed, asked = 0, set()
         t0 = time.perf_counter()
@@ -215,16 +202,16 @@ class Run:
             "seconds": calls[-1][2] - t0, "calls": len(calls),
             "images": sum(len(c[0]) for c in calls),
             "pixels": sum(self.load.pixels(c[0]) for c in ok),
-            "fronts": sum(self.load.fronts(c[0]) for c in ok),
+            **self.work([c[0] for c in ok]),
             "latencies_s": [c[2] - c[1] for c in ok],
-            "phases": dict(timer.totals)}
+            "phases": dict(timer.totals), "counts": dict(timer.counts)}
 
     # ---- traced stretch
     def stretch(self, recorder=None):
         """profile traffic["profile_calls"] whole calls."""
         from benchmark import devtrace
         from hevce_tpu_torch.utils import graphs
-        timer = SpanTimer()
+        timer = _timer()
         calls = [self.load.next_call()
                  for _ in range(int(self.traffic["profile_calls"]))]
         before = {k: m.LAUNCHES for k, m in graphs.COUNTERS.items()}
@@ -236,57 +223,54 @@ class Run:
                 self.encode(idx, timer)
             self.sync()
             w1 = time.time_ns()
-        t = devtrace.reduce(prof, (w0, w1), timer.spans)
+        t = devtrace.reduce(prof, (w0, w1), timer.spans,
+                            self.driver.PORT_KERNELS)
         if t["outside"]:
             print(f"profiled stretch: {t['outside']} card operations lie "
                   f"outside the host's window", file=sys.stderr, flush=True)
         made = {k: m.LAUNCHES - before[k] for k, m in graphs.COUNTERS.items()}
-        seen = devtrace.port_counts(t["kernels"])
-        t["lost_launches"] = {
-            k: made[k] - seen[p] for k, p in zip(
-                ("k1", "x1", "x2", "x3"), devtrace.PORT_KERNELS)
-            if made[k] > seen[p]}
+        t["lost_launches"] = self.driver.lost_launches(made, t["kernels"])
         if t["lost_launches"]:
             print(f"profiled stretch lost launches: {t['lost_launches']}",
                   file=sys.stderr, flush=True)
-        t["fronts"] = sum(self.load.fronts(c) for c in calls)
+        self.traced_work = self.work(calls)
+        t.update(self.traced_work)
         t["calls"] = len(calls)
         t["bound_ms"] = None
         if recorder is not None:
-            t["bound_ms"] = self.bound_ms(calls, recorder)
+            t["bound_ms"] = self.driver.bound_ms(self, calls, recorder)
         self.readings["trace"] = t
-
-    def bound_ms(self, calls, recorder):
-        """the port's kernels' bound over the calls' replays: a batch of
-        key (qpd6, R, Cc, B, rmd) replays D front steps, each bounded by
-        its warm-up step's calls; None if a key was not recorded."""
-        from benchmark import loadgen
-        total = 0.0
-        for idx in calls:
-            for h, w, B in self.load.shape_batches(idx):
-                key = (self.qpd6, -(-h // 32), -(-w // 32), B, self.rmd)
-                if key not in recorder.step_ms:
-                    return None
-                total += loadgen.fronts(h, w) * recorder.step_ms[key]
-        return total
 
     # ---- check
     def check(self):
         from benchmark import check
-        from benchmark.reference import search
         encoded = list(self.streams)
         rng = np.random.default_rng([self.seed, 1])
         sample = check.draw_sample(rng, self.load.pool, encoded,
                                    int(self.traffic["check_per_shape"]))
 
         def reference(images):
-            return search.encode_recon(images, self.qpd6, self.rmd,
-                                       self.device)
+            return self.driver.reference(self, images)
         return check.run(self.load.pool, self.streams, sample, reference,
                          self.failed, self.asked), sample
 
 
 # ---------------------------------------------------------------- helpers
+
+def _load(path, name):
+    """the module at path, loaded under name."""
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"),
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timer():
+    """the port's phase timer (utils/tracing.PhaseTimer)."""
+    from hevce_tpu_torch.utils.tracing import PhaseTimer
+    return PhaseTimer()
+
 
 def loaded_forbidden():
     """top-level names in sys.modules that no run may load."""
@@ -302,20 +286,20 @@ def percentile(values, q):
 
 def prepare_env():
     """the program's knobs cleared: the configuration sets the cell."""
-    for k in PROGRAM_KNOBS:
-        os.environ.pop(k, None)
+    for k in [k for k in os.environ if k.startswith(PROGRAM_KNOBS)]:
+        del os.environ[k]
 
 
-def import_port():
-    """the port's fast mode (models/wavefront), from this checkout."""
+def import_port(name):
+    """the port's module `name`, from this checkout."""
     try:
-        from hevce_tpu_torch.models import wavefront
+        mod = importlib.import_module(name)
     except ImportError as e:
         raise Fail(f"the port is not in this checkout: {e}") from None
-    where = pathlib.Path(wavefront.__file__).resolve()
+    where = pathlib.Path(mod.__file__).resolve()
     if ROOT not in where.parents:
         raise Fail(f"the port was imported from {where}, outside {ROOT}")
-    return wavefront
+    return mod
 
 
 def main(argv, t0):
@@ -353,21 +337,14 @@ def drive(bench, workload, seed, seconds, trace, t0, device="cuda"):
     stretch (trace 1), the check; returns the result's JSON object. The
     tests drive it on the CPU (device="cpu", trace 0)."""
     import torch
-    wavefront = import_port()
-    from benchmark import bounds, check
-    from hevce_tpu_torch.ops import fused_eval, fused_node
-    from hevce_tpu_torch.utils import graphs
+    from benchmark import check
 
     on_card = device != "cpu"
     r = Run(bench, workload, seed, device)
-    recorder = bounds.Recorder() if trace else None
-    record = None
-    if recorder is not None:
-        record = lambda: recorder.installed(                    # noqa: E731
-            {"fused_eval": fused_eval, "fused_node": fused_node},
-            wavefront._SliceRunner)
+    r.program = r.driver.import_program()
+    recorder = r.driver.recorder(r) if trace else None
     t_setup = time.perf_counter()
-    r.setup(wavefront, record)
+    r.setup(recorder)
     r.readings["setup_s"] = time.perf_counter() - t0
     print(f"set-up: {r.readings['setup_s']:.3f} s, of which pool and "
           f"warm-up calls {time.perf_counter() - t_setup:.3f} s",
@@ -377,15 +354,15 @@ def drive(bench, workload, seed, seconds, trace, t0, device="cuda"):
         t_trace = time.perf_counter()
         r.stretch(recorder)
         t = r.readings["trace"]
-        print(f"traced stretch: {t['calls']} calls, {t['fronts']} fronts, "
+        work = "".join(f"{v} {k}, " for k, v in r.traced_work.items())
+        print(f"traced stretch: {t['calls']} calls, {work}"
               f"{t['kernel_count']} kernels, {t['window_s']:.3f} s; read in "
               f"{time.perf_counter() - t_trace:.3f} s", file=sys.stderr,
               flush=True)
     r.sync()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     # the program's state is freed before the reference runs on the card
-    wavefront._slice_runner_cache.cache_clear()
-    graphs.CAPTURED.clear()
+    r.driver.release(r)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()

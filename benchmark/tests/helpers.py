@@ -1,6 +1,6 @@
 """A tiny benchmark in a temporary directory, for driving the harness on the
 CPU: its own BENCHMARK.json, configuration and traffic, with the real
-metric readers."""
+drivers and metric readers."""
 import json
 import pathlib
 import shutil
@@ -31,7 +31,7 @@ def tiny_bench(tmp: pathlib.Path, config=None, traffic=None):
             m["workloads"] = ["tiny.pool"]
     (tmp / "bench" / "configs").mkdir(parents=True)
     (tmp / "bench" / "traffic").mkdir()
-    for d in ("end_to_end", "layer_metrics"):
+    for d in ("drivers", "end_to_end", "layer_metrics"):
         shutil.copytree(BENCH / d, tmp / "bench" / d)
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec))
     (tmp / "bench" / "configs" / "tiny.json").write_text(
