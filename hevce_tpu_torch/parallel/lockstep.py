@@ -45,6 +45,19 @@ pipelined call and every mesh part has a slot of its own, (run, part), so
 no run or part replays a program whose outputs another still holds.
 HEVCE_ASYNC_FETCH=1 starts the copies to the host at dispatch (behind a
 CUDA event that complete() waits on) instead of at complete().
+
+A full fetch copies every candidate's quant and recon into pinned host
+buffers of the producer program's own (graphs.Program.start_copy).
+
+Tracing (a caller's PhaseTimer): host_arbiter, device_math_* (each event's
+row load and replay), writeback and winner_fetch (the copies of the
+results into the engine's buffers), and inside those two card_wait, the
+host's wait for the card; each fetch event's mode counts as fetch_winner,
+fetch_full or fetch_none. On one CUDA device without pipeline halves each
+event's card time, from a timing event after its rows' load (for a full
+fetch, before its copies) to one after its results' copies, goes to the
+timer's CARD total. Without a timer nothing is timed and no event is
+recorded.
 """
 import ctypes
 import functools
@@ -62,7 +75,7 @@ from hevce_tpu_torch.parallel import batch as pb
 from hevce_tpu_torch.runtime import native
 from hevce_tpu_torch.utils import device as _device
 from hevce_tpu_torch.utils import graphs
-from hevce_tpu_torch.utils.tracing import PhaseTimer
+from hevce_tpu_torch.utils.tracing import CARD, PhaseTimer
 
 MODES = 35
 KIND_NODE, KIND_PU, KIND_DONE, KIND_NODE_FETCH, KIND_PU_FETCH = 0, 1, 2, 3, 4
@@ -214,13 +227,18 @@ def _pu_program(qpd6: int, B: int, device: torch.device,
                           fetch=(2, 3))
 
 
+def _candidate_idx(prog: graphs.Program):
+    """the indices of each TU layout's quants, then recons, in a node or PU
+    program's outputs."""
+    return (0, 1) if prog.kind == "pu" else (0, 3, 1, 4)
+
+
 def _candidates(prog: graphs.Program):
     """(quants, recons) of each TU layout in a node or PU program's last
     outputs."""
-    out = prog.out
-    if prog.kind == "pu":
-        return (out[0],), (out[1],)
-    return (out[0], out[3]), (out[1], out[4])
+    out = [prog.out[i] for i in _candidate_idx(prog)]
+    n = len(out) // 2
+    return tuple(out[:n]), tuple(out[n:])
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,15 +272,6 @@ def _check_transfer(tensors, host):
                       f"expected {want}, got {got}")
 
 
-def _get(tensors, verify: bool):
-    """Copy device results to the host (the full fetch), checked with
-    verify."""
-    host = [t.cpu().numpy() for t in tensors]
-    if verify:
-        _check_transfer(tensors, host)
-    return host
-
-
 class _Run:
     """One lockstep engine instance (one C++ BatchEngine and its device
     state), with the per-event work split into next / dispatch / complete
@@ -270,7 +279,7 @@ class _Run:
     tells the programs of two runs of one call apart."""
 
     def __init__(self, lib, images, qpd6, node_rates, device, verify, timer,
-                 mesh=None, slot=0, async_fetch=False):
+                 mesh=None, slot=0, async_fetch=False, card=False):
         self.lib = lib
         self.qpd6 = qpd6
         self.node_rates = node_rates
@@ -280,6 +289,8 @@ class _Run:
         self.verify = verify
         self.async_fetch = async_fetch
         self.timer = timer
+        self.card = card    # time each event on the card (module docstring)
+        self._start = None  # the timing event that opens the event's card time
         self.B = B = len(images)
         self.ysz, self.xsz = images[0].shape
         self.yp = -(-self.ysz // 32) * 32
@@ -328,15 +339,32 @@ class _Run:
             self.done = True
         return self.kind
 
+    def _card_event(self):
+        """a timing event recorded on the current stream, or None where
+        events are not timed."""
+        if not self.card:
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _add_card(self, start, end):
+        """the card seconds from start to end into the timer's CARD total."""
+        end.synchronize()
+        self.timer.totals[CARD] += start.elapsed_time(end) / 1e3
+        self.timer.counts[CARD] += 1
+
     def _replay(self, program, reqs):
         """Each part's rows into its program, and its replay: program(i, k)
         is part i's program for k rows. The rows are copied before this
         returns (the engine rewrites its request buffers once complete()
         resupplies it). With HEVCE_ASYNC_FETCH=1 the fetches start too.
-        Returns the parts' programs."""
+        A timed event's card time opens after the load. Returns the parts'
+        programs."""
         def part(i, *rows):
             prog = program(i, rows[0].shape[0])
             prog.load(rows)
+            self._start = self._card_event()
             prog()
             if self.async_fetch:
                 prog.start_fetch()
@@ -373,16 +401,37 @@ class _Run:
                         lambda i, k: _gather_program(self.progs[i]), [sel]))
                 else:
                     self._out = ("none", sel, ())
+            self.timer.counts[f"fetch_{self._out[0]}"] += 1
 
-    def _host(self, progs):
-        """the programs' fetched outputs on the host, each part's rows in
-        mesh order."""
-        parts = []
-        for p in progs:
-            host = p.fetched()
-            if self.verify:
-                _check_transfer([p.out[i] for i in p.fetch], host)
-            parts.append(host)
+    def _host(self, progs, full=False):
+        """the programs' fetched outputs on the host (full: their
+        candidates, _candidate_idx), each part's rows in mesh order: views
+        that the next fetch overwrites. The host's wait for them is the
+        card_wait phase; a timed event's card seconds go to the CARD
+        total."""
+        if full:
+            self._start = self._card_event()
+            idx = [_candidate_idx(p) for p in progs]
+            parts = [p.start_copy(i) for p, i in zip(progs, idx)]
+        else:
+            idx = [p.fetch for p in progs]
+            if not self.async_fetch:
+                for p in progs:
+                    p.start_fetch()
+        end = self._card_event() if self._start is not None else None
+        with self.timer.phase("card_wait"):
+            for p in progs:
+                p.wait()
+        if end is not None:
+            self._add_card(self._start, end)
+        self._start = None
+        if not full:
+            parts = [p.fetched() for p in progs]
+        if self.verify:
+            for p, i, host in zip(progs, idx, parts):
+                _check_transfer([p.out[k] for k in i], host)
+        if len(parts) == 1:
+            return parts[0]
         return [np.concatenate(a) for a in zip(*parts)]
 
     def complete(self):
@@ -415,9 +464,7 @@ class _Run:
             recon = (self.res_recon, self.res_recon4)
             with self.timer.phase("winner_fetch"):
                 if mode == "full":
-                    host = [np.concatenate(a) for a in zip(*(
-                        _get(sum(_candidates(p), ()), self.verify)
-                        for p in self.progs))]
+                    host = self._host(self.progs, full=True)
                     nl = len(host) // 2
                     for layout in range(nl):
                         quant[layout][:B * MODES * nn] = host[layout].reshape(-1)
@@ -474,8 +521,10 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     timer: optional utils.tracing.PhaseTimer accumulating host_arbiter /
     device_math_node{sz} / device_math_pu / writeback / winner_fetch /
     finish (device phases time the host's enqueue; the wait for the card
-    lands in writeback and winner_fetch). HEVCE_TRACE=1 prints the
-    breakdown to stderr on return.
+    is card_wait, inside writeback and winner_fetch), the fetch_winner /
+    fetch_full / fetch_none counts and, on one CUDA device without
+    pipeline halves, each event's card seconds in its CARD total (module
+    docstring). HEVCE_TRACE=1 prints the breakdown to stderr on return.
     mesh: a sequence of devices (parallel/batch.make_mesh); every node and
     PU step splits its batch over them, each part replaying the program of
     its device and batch. A mesh turns node_rates on, and the batch must be
@@ -501,6 +550,7 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     verify = os.environ.get("HEVCE_VERIFY_TRANSFERS", "0") == "1"
     async_fetch = os.environ.get("HEVCE_ASYNC_FETCH", "0") == "1"
     trace_env = timer is None and os.environ.get("HEVCE_TRACE", "0") == "1"
+    timed = timer is not None or trace_env
     timer = timer if timer is not None else PhaseTimer()
     images = [native._clip_dims(im) for im in images]
     if any(im.shape != images[0].shape for im in images):
@@ -510,6 +560,8 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
     cut = B // 2 if mesh is None else B // 2 // len(mesh) * len(mesh)
     if pipeline and 0 < cut < B:    # halves the mesh divides
         parts = [images[:cut], images[cut:]]
+    # events one after another on one stream: each event's card time
+    card = timed and mesh is None and dev.type == "cuda" and len(parts) == 1
 
     lib = native._load()
     runs = []
@@ -519,7 +571,7 @@ def encode_batch(images, qpd6: int, node_rates: bool = None, timer=None,
             for part in parts:
                 runs.append(_Run(lib, part, qpd6, node_rates, dev, verify,
                                  timer, mesh, slot=len(runs),
-                                 async_fetch=async_fetch))
+                                 async_fetch=async_fetch, card=card))
             live = runs
             for r in live:
                 if r.next() != KIND_DONE:

@@ -117,8 +117,9 @@ class Program:
     next call of this program overwrites. load() takes its arrays before it
     returns (numpy arrays through one pinned staging buffer, reused only by
     the next load(), which follows this call's fetch). fetched() copies
-    into pinned host buffers and waits for them: numpy views that the next
-    fetch overwrites."""
+    into pinned host buffers and waits for them (wait() alone waits): numpy
+    views that the next fetch overwrites. start_copy(idx) does the same for
+    other outputs, into pinned buffers of their own."""
 
     def __init__(self, kind, fields, step, device: torch.device,
                  fetch=(), fill=None):
@@ -135,6 +136,7 @@ class Program:
         self.fetch = fetch
         self.out = None
         self._host, self._ready = None, None
+        self._copies = {}   # start_copy's pinned buffers, by indices
         self._started = False
         self.run = CapturedStep(lambda: step(*self.args), device, kind)
 
@@ -176,11 +178,36 @@ class Program:
             h.copy_(t, non_blocking=True)
         self._ready.record(torch.cuda.current_stream(self.device))
 
-    def fetched(self):
-        """the fetched outputs of the last call on the host (starting their
-        copies now unless start_fetch() did)."""
+    def start_copy(self, idx):
+        """queue copies of the outputs idx (a tuple) of the last call to the
+        host, which wait() then waits for too, and return their numpy
+        views: on CUDA pinned buffers of these indices, which the next
+        start_copy(idx) overwrites; on the CPU the outputs themselves."""
+        outs = [self.out[i] for i in idx]
+        if self.device.type != "cuda":
+            return [t.numpy() for t in outs]
+        bufs = self._copies.get(idx)
+        if bufs is None:
+            bufs = self._copies[idx] = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in outs]
+        for h, t in zip(bufs, outs):
+            h.copy_(t, non_blocking=True)
+        if self._ready is None:
+            self._ready = torch.cuda.Event()
+        self._ready.record(torch.cuda.current_stream(self.device))
+        return [h.numpy() for h in bufs]
+
+    def wait(self):
+        """start the copies of the fetched outputs unless start_fetch() did,
+        and wait for them (CUDA: the host's wait for the card)."""
         if not self._started:
             self.start_fetch()
         if self._ready is not None:
             self._ready.synchronize()
+
+    def fetched(self):
+        """the fetched outputs of the last call on the host (starting their
+        copies now unless start_fetch() did)."""
+        self.wait()
         return [h.numpy() for h in self._host]

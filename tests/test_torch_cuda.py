@@ -346,6 +346,34 @@ def test_lockstep_on_card_matches_native(cuda_device, node_rates, pipeline):
         assert np.array_equal(r, r_ref)
 
 
+@pytest.mark.cuda
+def test_lockstep_card_seconds_of_each_event_from_cuda_events(cuda_device):
+    """with a timer, every node, PU, winner-gather and full-fetch event adds
+    its card seconds (a timing event after its rows' load, or before a full
+    fetch's copies, to one after its results' copies) to the CARD total:
+    more than 0 and no more than the call's wall, the same streams as
+    untimed; pipeline halves add none."""
+    rng = np.random.default_rng(24)
+    imgs = [rng.integers(0, 256, (32, 64)).astype(np.uint8) for _ in range(2)]
+    plain, _ = lockstep.encode_batch(imgs, 2, device=cuda_device)  # builds
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    streams, _ = lockstep.encode_batch(imgs, 2, timer=timer,
+                                       device=cuda_device)
+    wall = time.perf_counter() - t0
+    assert streams == plain
+    assert 0 < timer.totals[CARD] <= wall
+    events = 2 * (21 + 64)                               # two CTU steps
+    assert timer.counts[CARD] == (events + timer.counts["fetch_winner"]
+                                  + timer.counts["fetch_full"])
+    assert 0 < timer.totals["card_wait"] <= timer.totals["writeback"] + \
+        timer.totals["winner_fetch"]
+    halves = PhaseTimer()
+    lockstep.encode_batch(imgs, 2, timer=halves, pipeline=True,
+                          device=cuda_device)
+    assert CARD not in halves.totals and "card_wait" in halves.totals
+
+
 # -------------------------------------- spec encoder, device step, mesh
 
 @pytest.mark.cuda
@@ -436,6 +464,31 @@ def _replayed_event(sz, qpd6, rates, arrays, sel, dev, slot):
 
 EVENTS = [(sz, rates) for sz in (8, 16, 32) for rates in (False, True)] + [
     (4, False)]
+
+
+@pytest.mark.cuda
+def test_full_fetch_copies_candidates_into_pinned_buffers(cuda_device):
+    """a full fetch (Program.start_copy of _candidate_idx) copies a node and
+    a PU program's candidates into pinned buffers of their own, the same
+    buffers for the next event, equal to the outputs once wait() returns."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for sz in (4, 16):
+        seen = None
+        for event in range(2):
+            arrays = _event_arrays(sz, 3, 50 * sz + event, False)
+            _, _, prog, _ = _replayed_event(
+                sz, 2, False, arrays, np.array([0, 1, -1], np.int32), dev,
+                ("test_full", 0))
+            idx = lockstep._candidate_idx(prog)
+            host = prog.start_copy(idx)
+            prog.wait()
+            assert all(prog._copies[idx][k].is_pinned()
+                       for k in range(len(idx)))
+            for h, i in zip(host, idx):
+                assert h.tobytes() == prog.out[i].cpu().numpy().tobytes()
+            ptrs = [h.ctypes.data for h in host]
+            assert seen is None or ptrs == seen
+            seen = ptrs
 
 
 @pytest.mark.cuda
