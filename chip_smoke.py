@@ -4,7 +4,7 @@
 Phases, each printed as one JSON line:
 
   build     compile the native host library (g++), kernels K1 and K2, the
-            probe kernels P1-P3 and the fused node kernels X1-X3 (nvcc)
+            probe kernels P1-P3 and the fused node kernels X1-X4 (nvcc)
             from the sources in this checkout, all at once; seconds for
             each, ptxas's report
             (registers and spills of every instantiation), and the IMMA
@@ -56,21 +56,25 @@ Phases, each printed as one JSON line:
             step is a CUDA graph replayed per front. A first run builds the
             two shapes' runners (an eager warm-up step and a capture each);
             the second is timed. K1 must launch exactly 169 times per front
-            step (and per warm-up step), X1 148, X2 21 and X3 106 times,
+            step (and per warm-up step), X1 148, X2 21, X3 106 and X4 85
+            times,
             and every stream must decode, through the independent native
             decoder, to the recon returned with it.
-  xnode     the fused node kernels X1-X3 (ops/fused_node, csrc/
+  xnode     the fused node kernels X1-X4 (ops/fused_node, csrc/
             fused_node.cu: X1 intra prediction with its borders, X2 the RMD
-            preselection, X3 candidate rate and RD cost; they stand for
-            XLA's fusions of the JAX front step) against their plain
-            versions on the card, tolerance 0: at every call of a real RMD
-            and a real dense front step (288 lanes, front 30 of the slice
-            phase's 768x512 batch, qpd6 0-4; the calls per step counted),
-            at the lockstep path's 18-row and the spec path's one-row calls
-            (X1, qpd6 0-4), and in adversarial cases (every flag
-            combination, flat and 0 / 255 borders, SATD ties across the
-            K-th place, all-zero blocks, levels at K1's int16 extremes,
-            SSEs at the RD cost's saturation edges). Per kernel the card
+            preselection, X3 candidate rate and RD cost, X4 a node's or NxN
+            PU's pick; they stand for XLA's fusions of the JAX front step)
+            against their plain versions on the card, tolerance 0 (X4's
+            slots, canvas and total written in place too, each side on its
+            own copies): at every call of a real RMD and a real dense front
+            step (288 lanes, front 30 of the slice phase's 768x512 batch,
+            qpd6 0-4; the calls per step counted), at the lockstep path's
+            18-row and the spec path's one-row calls (X1, qpd6 0-4), and in
+            adversarial cases (every flag combination, flat and 0 / 255
+            borders, SATD ties across the K-th place, all-zero blocks,
+            levels at K1's int16 extremes, SSEs at the RD cost's saturation
+            edges, X4's costs tied at the minimum and at I32_MAX and totals
+            at the saturation edge). Per kernel the card
             ms, call ms and plain ms of one RMD and one dense front step's
             calls (X1 also per lockstep and spec CTU) beside the bound.
   lockstep  the bit-exact lockstep engine, as a user calls it:
@@ -119,7 +123,7 @@ Phases, each printed as one JSON line:
             cost of the main path's three runners (the RMD keys of both
             shapes, the dense key; eager warm-up step, capture with
             instantiate, graph nodes, pool memory; a step of more than
-            10,845 graph nodes fails, and each key's K1 and X1-X3 launches
+            10,845 graph nodes fails, and each key's K1 and X1-X4 launches
             a replay are held to the step's) and, at the main path's
             288 lanes, per front step: the replay ms (CUDA events over a
             whole slice of replays), the eager step's wall ms on the same
@@ -164,11 +168,11 @@ Phases, each printed as one JSON line:
             bit-exact against the native engine, the fast-mode mesh encode
             decode-verified. K1 and K2 launch counts there.
 
-On the fast paths every K1 and X1-X3 count adds one step for each slice
+On the fast paths every K1 and X1-X4 count adds one step for each slice
 runner the run builds (its eager warm-up step on the card;
 runners_built()), and on the lockstep, spec and mesh paths one step for
 each event program built (programs_built(), warmup_launches()); there X1
-launches once before each K1 launch, and X2 and X3 never.
+launches once before each K1 launch, and X2-X4 never.
 
 Then the seconds each phase took, how many profiler sessions recorded no
 kernel or lost launches (run again), and how many card times came from
@@ -184,8 +188,10 @@ Usage: python3 chip_smoke.py [--seed N]
 import argparse
 import contextlib
 import functools
+import inspect
 import io
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -272,8 +278,8 @@ def captured():
 def warmup_launches(since):
     """(K1, K2) launches of the warm-up steps of the programs built since
     `since`; fails unless every one's replays count the launches its kind
-    makes (PROGRAM_LAUNCHES, and an X1 launch before each K1 launch, no X2
-    or X3: the event programs run cu_eval's evaluations, not the fast
+    makes (PROGRAM_LAUNCHES, and an X1 launch before each K1 launch, no
+    X2-X4: the event programs run cu_eval's evaluations, not the fast
     mode's node functions)."""
     from hevce_tpu_torch.utils import graphs
 
@@ -281,8 +287,8 @@ def warmup_launches(since):
         if s.kind != "front" and (
                 (s.launches["k1"], s.launches["k2"]) !=
                 PROGRAM_LAUNCHES[s.kind] or
-                (s.launches["x1"], s.launches["x2"], s.launches["x3"]) !=
-                (s.launches["k1"], 0, 0)):
+                (s.launches["x1"], s.launches["x2"], s.launches["x3"],
+                 s.launches["x4"]) != (s.launches["k1"], 0, 0, 0)):
             fail(f"a {s.kind} program counts {s.launches} launches a "
                  f"replay, expected {PROGRAM_LAUNCHES[s.kind]} and as "
                  f"many X1 as K1")
@@ -293,11 +299,11 @@ def warmup_launches(since):
 
 def x_only_x1(where):
     """fails unless, since reset_launches(), X1 launched once for each K1
-    launch and X2 and X3 never (the lockstep and spec paths evaluate
+    launch and X2-X4 never (the lockstep and spec paths evaluate
     candidates through cu_eval only)."""
     got = port_launches()
-    if (got["x1"], got["x2"], got["x3"]) != (got["k1"], 0, 0):
-        fail(f"{where}: launches {got}, expected X1 = K1 and no X2 / X3")
+    if (got["x1"], got["x2"], got["x3"], got["x4"]) != (got["k1"], 0, 0, 0):
+        fail(f"{where}: launches {got}, expected X1 = K1 and no X2-X4")
 
 
 def fail(msg):
@@ -569,7 +575,7 @@ def phase_k2(torch, dev, rng):
 
 # ------------------------------------------------------ fused node kernels
 
-# X1-X3 (ops/fused_node, csrc/fused_node.cu): the counterparts of XLA's
+# X1-X4 (ops/fused_node, csrc/fused_node.cu): the counterparts of XLA's
 # fusions of the JAX package's front step, not ports of Pallas kernels.
 # name: (wrapper, plain version, kernel, the JAX function it stands for)
 X_KERNELS = {
@@ -579,7 +585,12 @@ X_KERNELS = {
            "hevce_tpu/models/wavefront.py:442"),
     "x3": ("rate_cost", "rate_cost_plain", "x3_rate_cost",
            "hevce_tpu/models/wavefront.py:130"),
+    "x4": ("pick", "pick_plain", "x4_pick",
+           "hevce_tpu/models/wavefront.py:356"),
 }
+# the arguments an X kernel writes in place: each side of a comparison gets
+# its own copies, compared afterwards as outputs
+X_INPLACE = {"x4": ("pm", "quant", "recon", "total")}
 X_REPLACES = {
     "x1": "XLA's fusion of intra.build_borders + predict_all_modes "
           "(hevce_tpu/ops/intra.py:32, :261) in cu_eval.eval_2nx2n and of "
@@ -590,13 +601,20 @@ X_REPLACES = {
           "the forced bias, _topk_mask and _compress_u8",
     "x3": "XLA's fusion of _est_rate, _pmode_rate, _lastxy_rate "
           "(wavefront.py:130, :156, :220) and rdcost.calc_rd_cost "
-          "(hevce_tpu/ops/rdcost.py:10)"}
+          "(hevce_tpu/ops/rdcost.py:10)",
+    "x4": "XLA's fusion of the node functions' picks: jnp.argmin over the "
+          "joined costs, the one-hot masked sums of the winner's levels and "
+          "recon (wavefront.py:356, :504), and _eval_nxn's per-PU "
+          "dynamic_update_slice into the canvas and saturating total "
+          "(wavefront.py:568)"}
 # launches per front step, by counter: K1; X1 the TU splits' 84 sub-TUs and
 # the NxN PUs (RMD: all 64; dense: PUs 1-3, 48, with the 21 nodes' 2Nx2N);
-# X2 one per RMD node; X3 two per node and one per NxN PU
-FRONT_LAUNCHES = {"k1": LAUNCHES_PER_FRONT, "x1": 148, "x2": 21, "x3": 106}
+# X2 one per RMD node; X3 two per node and one per NxN PU; X4 (the pick)
+# one per node and per NxN PU
+FRONT_LAUNCHES = {"k1": LAUNCHES_PER_FRONT, "x1": 148, "x2": 21, "x3": 106,
+                  "x4": 85}
 DENSE_FRONT_LAUNCHES = {"k1": DENSE_LAUNCHES_PER_FRONT, "x1": 153, "x2": 0,
-                        "x3": 106}
+                        "x3": 106, "x4": 85}
 # X1 calls per CTU of the lockstep and spec paths, by (block size, sub-TU):
 # a PU event's 4x4 2Nx2N, a node event's 2Nx2N and its four sub-TUs (169,
 # one before each K1 launch)
@@ -630,7 +648,7 @@ def reset_launches():
 
 
 def check_fronts(where, per_step, steps):
-    """fails unless K1 and X1-X3 launched per_step times each of `steps`
+    """fails unless K1 and X1-X4 launched per_step times each of `steps`
     front steps since reset_launches(). Returns the counts."""
     got = port_launches()
     got = {k: got[k] for k in per_step}
@@ -692,18 +710,44 @@ def x_calls(torch, run):
     return calls
 
 
+def x_twins(torch, x, kw):
+    """the keyword arguments of both sides of a comparison of X kernel x:
+    each argument it writes in place (X_INPLACE) as the same view of a
+    buffer of each side's own that spans the view, the elements between
+    the view's set to one pattern on both sides, so that a write outside
+    the view shows too. Returns (the kernel's kw, the plain version's kw,
+    [(kernel's buffer, plain version's buffer)])."""
+    sides, bufs = ({}, {}), []
+    for k, v in kw.items():
+        if k not in X_INPLACE.get(x, ()) or v is None:
+            sides[0][k] = sides[1][k] = v
+            continue
+        n = 1 + sum((d - 1) * s for d, s in zip(v.shape, v.stride()))
+        pair = []
+        for side in sides:
+            buf = (torch.arange(n, device=v.device) * 7919 % 251).to(v.dtype)
+            side[k] = buf.as_strided(v.shape, v.stride()).copy_(v)
+            pair.append(buf)
+        bufs.append(tuple(pair))
+    return sides[0], sides[1], bufs
+
+
 def x_compare(torch, x, args, kw, where):
     """X kernel x on one call's inputs against its plain version on the same
-    inputs (on the card), tolerance 0: fails on any difference, else
-    returns the largest |error| (0)."""
+    inputs (on the card), tolerance 0, what it writes in place included
+    (x_twins): fails on any difference, else returns the largest |error|
+    (0)."""
     from hevce_tpu_torch.ops import fused_node
 
     w, p, _, _ = X_KERNELS[x]
-    got = getattr(fused_node, w)(*args, **kw)
+    kw_k, kw_p, bufs = x_twins(torch, x, kw)
+    got = getattr(fused_node, w)(*args, **kw_k)
     torch.cuda.synchronize()
-    want = getattr(fused_node, p)(*args, **kw)
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    want = getattr(fused_node, p)(*args, **kw_p)
+    got = (got if isinstance(got, tuple) else (got,)) + tuple(
+        b for b, _ in bufs)
+    want = (want if isinstance(want, tuple) else (want,)) + tuple(
+        b for _, b in bufs)
     worst = 0
     for g, v in zip(got, want):
         if g.dtype != v.dtype or g.shape != v.shape:
@@ -756,6 +800,21 @@ def x_cost(x, args, kw):
         nbytes = ctx * top.element_size() + fl * rows + canvas * rows * M \
             + (0 if modes is None else 4 * rows * M) + rows * M * n * n
         return nbytes, rows * M * n * n * X_OPS_PER_PX
+    if x == "x4":
+        from hevce_tpu_torch.ops import fused_node
+
+        a = inspect.signature(fused_node.pick_plain).bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        rows, M = a["cost1"].shape
+        M += 0 if a["cost2"] is None else a["cost2"].shape[1]
+        nn = math.prod(a["q1"].shape[2:])
+        # every cost read; the winner's levels and recon read and written,
+        # its mode read where a map gives it; cost, lay and pm written; the
+        # running total read and written
+        nbytes = rows * (4 * M + 6 * nn + 12 + 4 * (a["modes1"] is not None)
+                         + 8 * (a["total"] is not None))
+        return nbytes, rows * (2 * M + 2 * (a["total"] is not None))
     if x == "x2":
         sz, top, left, flags, blk, _, _, K = args
         rows, nn, K = blk.shape[0], sz * sz, min(K, 35)
@@ -865,11 +924,78 @@ def x_adversarial(torch, dev, rng):
                            None if md is None else to(md, np.int32), split],
                     {}, f"extremes, sz={sz} M={M} split={split} "
                         f"qpd6={qpd6}"))
+    out += x4_adversarial(torch, dev, rng)
+    return out
+
+
+def x4_adversarial(torch, dev, rng):
+    """X4's edge cases as calls [("x4", args, kwargs, label)], at 1 and 37
+    rows: a node's pick (RMD 12 + 4 with mode maps, dense 35 + 35, the
+    split's levels as (rows, T, 4, h, h) sub-TUs) at sz 8 / 16 / 32 and an
+    NxN PU's (4, 35) into its slots, a 4x4 of a canvas view and a running
+    total; costs that tie at the minimum (within a set and across the two),
+    all at I32_MAX, one below it, and totals at the saturation edge
+    (I32_MAX - min - 1 ... + 1, I32_MAX, 0)."""
+    i32max = 2**31 - 1
+    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(
+        a.astype(dt))).to(dev)
+    blk = lambda lo, hi, dt, *s: to(rng.integers(lo, hi, s), dt)
+
+    def costs(rows, m1, m2):
+        """(rows, m1 + m2) costs: few values (ties), row 0 all I32_MAX, row
+        1 one below it in both sets' first places, row 2 the minimum at the
+        last of set 1 and the first of set 2, row 3 all equal."""
+        c = rng.integers(5, 8, (rows, m1 + m2))
+        c[0] = i32max
+        if rows > 1:
+            c[1], c[1, [0, m1 % (m1 + m2)]] = i32max, i32max - 1
+            c[2, [m1 - 1, m1 % (m1 + m2)]] = 4
+            c[3] = 6
+        return c
+
+    out = []
+    for rows in (1, 37):
+        for sz, rmd in ((8, True), (16, True), (32, True), (8, False),
+                        (16, False), (32, False)):
+            m1, m2 = (12, 4) if rmd else (35, 35)
+            c, h = costs(rows, m1, m2), sz // 2
+            args = [to(c[:, :m1], np.int32),
+                    blk(-32768, 32768, np.int16, rows, m1, sz, sz),
+                    blk(0, 256, np.uint8, rows, m1, sz, sz),
+                    to(c[:, m1:], np.int32),
+                    blk(-32768, 32768, np.int16, rows, m2, 4, h, h),
+                    blk(0, 256, np.uint8, rows, m2, sz, sz)]
+            if rmd:
+                mk = np.sort(rng.choice(35, (rows, m1)), -1)
+                args += [to(mk, np.int32), to(mk[:, :m2][:, ::-1], np.int32)]
+            out.append(("x4", args, {}, f"{'rmd' if rmd else 'dense'} node, "
+                                        f"sz={sz} rows={rows}"))
+        c = costs(rows, 35, 0)
+        mn = c.min(1)
+        edge = np.clip(i32max - mn + rng.integers(-1, 2, rows), 0, i32max)
+        edge[: min(rows, 3)] = (i32max - mn[0], i32max, 0)[: min(rows, 3)]
+        canvas = blk(0, 256, np.uint8, rows, 40, 41)[:, 4:37, 5:38]
+        pm4 = torch.full((rows, 4), -1, dtype=torch.int32, device=dev)
+        quant = torch.full((rows, 64), 7, dtype=torch.int16, device=dev)
+        q4 = blk(-32768, 32768, np.int16, rows, 35, 4, 4, 4)
+        r4 = blk(0, 256, np.uint8, rows, 35, 8, 8)
+        for isub, (q, r) in enumerate((
+                (q4[..., 0, :, :], r4[..., 0:4, 0:4]),
+                (blk(-32768, 32768, np.int16, rows, 35, 4, 4),
+                 blk(0, 256, np.uint8, rows, 35, 4, 4)))):
+            y, x = 8 + 4 * isub, 16 + 4 * isub
+            out.append(("x4", [to(c, np.int32), q, r],
+                        {"pm": pm4[:, 3 * isub],
+                         "quant": quant[:, 16 * isub:16 * isub + 16],
+                         "recon": canvas[:, y + 1:y + 5, x + 1:x + 5],
+                         "total": to(edge, np.int32)},
+                        f"NxN PU{3 * isub}, saturation edge, rows={rows}"))
     return out
 
 
 def phase_xnode(torch, dev, rng, card, imgs):
-    """X1-X3 against their plain versions on the card (tolerance 0): at
+    """X1-X4 against their plain versions on the card (tolerance 0; X4's
+    in-place slots, canvas and total too, x_twins): at
     every call of a real RMD and a real dense front step (288 lanes, front
     30 of the slice phase's 768x512 batch, qpd6 0-4), at the lockstep
     path's 18-row calls and the spec path's one-row calls (X1, through
@@ -1542,7 +1668,7 @@ def replayed_steps(torch, runner, per_step):
     host's time of one replay call with the card idle, the eager step's
     wall ms at fronts 30 and 31 on the same buffers, and a profiled pair of
     replayed steps (fronts 30, 31): card busy share, each port kernel's
-    card ms and launches a step, complete, lost sessions. K1 and X1-X3
+    card ms and launches a step, complete, lost sessions. K1 and X1-X4
     must launch per_step {counter: n} times a replayed step."""
     from hevce_tpu_torch.utils import timing
 
@@ -2030,13 +2156,13 @@ def phase_mesh(torch, dev, card):
         fail(f"dryrun_multichip(2) launched K1 {k1} and K2 {k2} times, "
              f"expected {want_k1} and {want_k2}")
     # X1 once before each K1 launch but on the fast mode's front steps,
-    # which launch X1-X3 FRONT_LAUNCHES times
+    # which launch X1-X4 FRONT_LAUNCHES times
     fast = 2 * 12 + built
     counts = port_launches()
-    want_x = {x: FRONT_LAUNCHES[x] * fast for x in ("x2", "x3")}
+    want_x = {x: FRONT_LAUNCHES[x] * fast for x in ("x2", "x3", "x4")}
     want_x["x1"] = k1 - fast * (FRONT_LAUNCHES["k1"] - FRONT_LAUNCHES["x1"])
     if {x: counts[x] for x in want_x} != want_x:
-        fail(f"dryrun_multichip(2) launched {counts}, expected X1-X3 "
+        fail(f"dryrun_multichip(2) launched {counts}, expected X1-X4 "
              f"{want_x}")
     emit({"phase": "mesh", "card": card, "mesh": [str(d) for d in mesh],
           "entry_equal_cpu": True, "steps_equal_unsplit": [8, 32],
@@ -2304,7 +2430,7 @@ def main():
         probes.LAUNCHES[k] = 0
     counts, imgs, streams, recons, slice_mp_s = timed(
         "slice", phase_slice, torch, dev, rng, card)
-    # X1-X3 on a generator of their own (the later phases' inputs stay)
+    # X1-X4 on a generator of their own (the later phases' inputs stay)
     x_err, x_rows = timed("xnode", phase_xnode, torch, dev,
                           np.random.default_rng([args.seed, 13]), card, imgs)
     lock_k1, lock_k2 = timed("lockstep", phase_lockstep, torch, dev, rng,

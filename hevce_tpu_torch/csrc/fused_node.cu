@@ -1,4 +1,4 @@
-// Fused node kernels X1-X3 for Hopper (sm_90a).
+// Fused node kernels X1-X4 for Hopper (sm_90a).
 //
 // They stand for XLA's fusions of the JAX package's front step
 // (hevce_tpu/models/wavefront.py, hevce_tpu/models/cu_eval.py): no Pallas
@@ -20,12 +20,19 @@
 //                            candidate's scan type, the pmode rate, header
 //                            bins, (r + 2^14) >> 15 and the saturating RD
 //                            cost. One warp per candidate.
+//   X4 x4_pick_kernel        a node's or NxN PU's winner: the first
+//                            minimum over one or two candidate sets, its
+//                            layout and mode, its levels and recon copied
+//                            out (a PU's recon into the leaf's canvas), a
+//                            PU's saturating running total. One warp per
+//                            row.
 //
 // What bounds them. Each does a few int32 operations per byte it moves:
 // X1 writes a byte per predicted pixel after ~10 operations; X2 reads a
 // byte of the original and does ~2 log2(sz) + 12 per pixel and mode
 // (prediction, two butterfly passes, |.|, the sum) for 35 modes, then
-// writes K of them; X3 reads two bytes of levels for ~20 operations. So
+// writes K of them; X3 reads two bytes of levels for ~20 operations; X4
+// moves the winner's 3 bytes a pixel and does nothing else. So
 // at the front step's shapes the bytes bound them on paper, and what sets
 // their time is latency: small grids (one block per row or candidate), the
 // barriers between X1's and X2's border steps and X2's butterfly stages.
@@ -483,7 +490,124 @@ __global__ void x3_rate_cost_kernel(int n, int subs, int rows, int lanes,
   cost[w] = rd_cost(sse[w], wadd(rf, kHalf) >> 15, p);
 }
 
+// ------------------------------------------------------------------- X4
+
+// candidate blocks of a row: element e (row-major over a w-wide block) of
+// candidate m in row r at p + r * rs + m * ms + (e / w) * ys + (e % w) * xs,
+// in elements; vec: every block is contiguous and 16-byte aligned. An
+// output's blocks the same way, with ms = 0.
+struct Blk {
+  char* p;
+  long long rs, ms, ys, xs;
+  int w, vec;
+};
+
+// int32 values of a row: element i of row r at p[r * rs + i * es]
+struct Ivec {
+  int* p;
+  long long rs, es;
+};
+
+struct X4Args {
+  int rows, sets, nn, M[2];
+  Ivec cost[2], modes[2];     // modes[s].p null: the mode is the index
+  Blk q[2], r[2];             // int16 levels, uint8 recon
+  int* cost_out;              // (rows,) contiguous
+  int* lay_out;
+  Ivec pm_out, total;         // total.p null: no running total
+  Blk q_out, r_out;
+};
+
+// the winner's block into the output row: 16-byte vectors when both sides
+// are contiguous and aligned, else element by element through the strides
+template <typename T>
+__device__ __forceinline__ void copy_block(const Blk& s, int r, int m,
+                                           const Blk& d, int nn, int lane) {
+  const T* src = reinterpret_cast<const T*>(s.p) + r * s.rs + m * s.ms;
+  T* dst = reinterpret_cast<T*>(d.p) + r * d.rs;
+  if (s.vec && d.vec) {
+    const int nv = nn * (int)sizeof(T) / 16;
+    const uint4* vs = reinterpret_cast<const uint4*>(src);
+    uint4* vd = reinterpret_cast<uint4*>(dst);
+    for (int k = lane; k < nv; k += 32) vd[k] = vs[k];
+    return;
+  }
+  for (int e = lane; e < nn; e += 32)
+    dst[(e / d.w) * d.ys + (e % d.w) * d.xs] =
+        src[(e / s.w) * s.ys + (e % s.w) * s.xs];
+}
+
+// One warp per row: the (cost, index) pairs of the sets joined, the first
+// minimum by a shuffle reduction (ties to the lower index, as
+// _argmin_first's), then the winner's cost, layout (1 + its set), mode and
+// blocks; with a running total, total = total > I32_MAX - cost ? I32_MAX :
+// total + cost in wrapping int32, as the plain version's.
+__global__ void x4_pick_kernel(X4Args a) {
+  const long long w =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w >= a.rows) return;                       // whole warps return
+  const int r = (int)w, lane = threadIdx.x & 31;
+  const int M0 = a.M[0], M = M0 + (a.sets > 1 ? a.M[1] : 0);
+  int best = kI32Max, bi = M;
+  for (int k = lane; k < M; k += 32) {
+    const Ivec c = k < M0 ? a.cost[0] : a.cost[1];
+    const int v = c.p[r * c.rs + (k < M0 ? k : k - M0) * c.es];
+    if (v < best || (v == best && k < bi)) {
+      best = v;
+      bi = k;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const int v = __shfl_xor_sync(kFull, best, off);
+    const int k = __shfl_xor_sync(kFull, bi, off);
+    if (v < best || (v == best && k < bi)) {
+      best = v;
+      bi = k;
+    }
+  }
+  const int s = bi >= M0, i = s ? bi - M0 : bi;
+  if (lane == 0) {
+    a.cost_out[r] = best;
+    a.lay_out[r] = 1 + s;
+    const Ivec md = s ? a.modes[1] : a.modes[0];
+    a.pm_out.p[r * a.pm_out.rs] = md.p ? md.p[r * md.rs + i * md.es] : i;
+    if (a.total.p) {
+      int* t = a.total.p + r * a.total.rs;
+      *t = *t > wsub(kI32Max, best) ? kI32Max : wadd(*t, best);
+    }
+  }
+  copy_block<int16_t>(s ? a.q[1] : a.q[0], r, i, a.q_out, a.nn, lane);
+  copy_block<uint8_t>(s ? a.r[1] : a.r[0], r, i, a.r_out, a.nn, lane);
+}
+
 int x2_threads(int n) { return n >= 32 ? 256 : n >= 16 ? 128 : 64; }
+
+struct Reader {
+  const long long* v;
+  int i;
+  long long next() { return v[i++]; }
+  Ivec ivec() {
+    Ivec x;
+    x.p = reinterpret_cast<int*>(next());
+    x.rs = next();
+    x.es = next();
+    return x;
+  }
+  Blk blk() {
+    Blk b;
+    b.p = reinterpret_cast<char*>(next());
+    b.rs = next();
+    b.ms = next();
+    b.ys = next();
+    b.xs = next();
+    b.w = (int)next();
+    b.vec = (int)next();
+    return b;
+  }
+};
+
+constexpr int kX4Words = 67;
 
 }  // namespace
 
@@ -579,6 +703,40 @@ int hevce_x3_launch(int n, int subs, int rows, int lanes, const void* q,
       pml_s, static_cast<const int*>(pma), pma_s,
       static_cast<const int*>(modes), static_cast<const int*>(tab), p,
       static_cast<int*>(cost));
+  return cudaGetLastError();
+}
+
+// X4 on `stream`: v (host memory, kX4Words words) is, in order: rows,
+// sets (1 or 2), nn (elements a block), M0, M1; the sets' costs, then
+// their mode maps (each pointer, row stride, element stride; a null mode
+// map: the mode is the index); the sets' levels (int16), then their
+// recons (uint8) (each pointer, row, candidate, block-row and element
+// strides, block width, vec); the outputs cost and lay ((rows,) int32,
+// contiguous), pm and the running total (pointer, row stride, 0; a null
+// total: none) and the levels and recon (as a set's blocks, candidate
+// stride 0). Returns -1 on a wrong word count, else cudaGetLastError().
+int hevce_x4_launch(const long long* v, int words, void* stream) {
+  if (words != kX4Words) return -1;
+  Reader rd{v, 0};
+  X4Args a;
+  a.rows = (int)rd.next();
+  a.sets = (int)rd.next();
+  a.nn = (int)rd.next();
+  a.M[0] = (int)rd.next();
+  a.M[1] = (int)rd.next();
+  for (int k = 0; k < 2; ++k) a.cost[k] = rd.ivec();
+  for (int k = 0; k < 2; ++k) a.modes[k] = rd.ivec();
+  for (int k = 0; k < 2; ++k) a.q[k] = rd.blk();
+  for (int k = 0; k < 2; ++k) a.r[k] = rd.blk();
+  a.cost_out = reinterpret_cast<int*>(rd.next());
+  a.lay_out = reinterpret_cast<int*>(rd.next());
+  a.pm_out = rd.ivec();
+  a.total = rd.ivec();
+  a.q_out = rd.blk();
+  a.r_out = rd.blk();
+  if (rd.i != kX4Words) return -1;
+  const unsigned blocks = (unsigned)((a.rows + 3) / 4);
+  x4_pick_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

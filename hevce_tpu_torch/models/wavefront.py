@@ -16,7 +16,8 @@ coefficient group; per-layout header constants. Every 8x8 leaf searches
 2Nx2N single-TU, 2Nx2N TU-split and NxN; 16x16 and 32x32 nodes compete with
 their split. Nodes preselect K of the 35 modes by SATD (RMD, the default)
 and search the TU-split on the top T, or (rmd=None) search all 35 modes in
-both TU layouts.
+both TU layouts. Every node and NxN PU takes its winner with one X4 pick
+(ops/fused_node.pick).
 
 A slice runs through its shape's runner (_slice_runner_cache, the JAX
 package's one compiled program per slice): on CUDA the front step is
@@ -47,7 +48,8 @@ from hevce_tpu_torch.models import cu_eval
 from hevce_tpu_torch.ops import constants as Cst
 from hevce_tpu_torch.ops import fused_node, rdcost
 # the rate model's units and the selectors the node functions still run
-# (the rest of the rate model lives beside the kernels that fuse it, X2, X3)
+# (the rest of the rate model lives beside the kernels that fuse it, X2, X3,
+# and the picks beside X4)
 from hevce_tpu_torch.ops.fused_node import (BIT, HALF, MODES, _i32, _sel_i32,
                                             _topk_mask)
 from hevce_tpu_torch.parallel import batch as pb
@@ -97,25 +99,6 @@ HDR_NXN_BINS = 4              # part + uv + 2 uvcbf (per-PU ycbf per PU)
 _SUB = ((0, 0), (0, 1), (1, 0), (1, 1))   # z-order, units of half-size
 
 
-def _argmin_first(x, dim):
-    """(min, first index of the min) along dim — ties go to the lower index,
-    as jnp.argmin's do."""
-    mn = x.min(dim, keepdim=True).values
-    idx = torch.arange(x.shape[dim], dtype=torch.int32, device=x.device)
-    idx = idx.reshape((-1,) + (1,) * (x.dim() - 1 - (dim % x.dim())))
-    first = torch.where(x == mn, idx, x.shape[dim]).min(dim).values
-    return mn.squeeze(dim), _i32(first)
-
-
-# ------------------------------------------------------------- selectors
-
-def _onehot_pick(x, oh, dtype):
-    """(B, M, nn) values, (B, M) one-hot -> (B, nn) in `dtype` (a masked
-    sum with a single nonzero term, computed in int32 and narrowed)."""
-    return (_i32(x) * _i32(oh)[:, :, None]).sum(1, dtype=torch.int32) \
-        .to(dtype)
-
-
 # ------------------------------------------------------------------ nodes
 
 def _sub_flags(fl):
@@ -154,7 +137,6 @@ def _eval_node(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
     the NxN partition's PU0 eval (same borders, flags and modes), which
     _eval_nxn then does not repeat."""
     ctxv, sigv = prices
-    dev = A.device
     top, left = _node_ctx(A, y0, x0, sz)
     blk = orig[:, y0:y0 + sz, x0:x0 + sz]
     q1, r1, s1 = cu_eval.eval_2nx2n(sz, qpd6, top, left, fl, blk)
@@ -165,20 +147,8 @@ def _eval_node(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
                                  HDR_LAY1_BINS)                 # (B, 35)
     cost3 = fused_node.rate_cost(sz, qpd6, q4, s4, ctxv, sigv, pml, pma,
                                  HDR_LAY2_BINS, split=True)
-    cost, sel = _argmin_first(torch.cat([cost1, cost3], 1), 1)
-    lay = torch.where(sel < MODES, 1, 2)
-    pm = torch.where(sel < MODES, sel, sel - MODES)
-
-    B = sel.shape[0]
-    nn = sz * sz
-    modes = torch.arange(MODES, dtype=torch.int32, device=dev)
-    oh1 = modes[None, :] == sel[:, None]
-    oh3 = modes[None, :] == (sel[:, None] - MODES)
-    quant = (_onehot_pick(q1.reshape(B, MODES, nn), oh1, torch.int16)
-             + _onehot_pick(q4.reshape(B, MODES, nn), oh3, torch.int16))
-    recon = (_onehot_pick(r1.reshape(B, MODES, nn), oh1, torch.uint8)
-             + _onehot_pick(r4.reshape(B, MODES, nn), oh3, torch.uint8))
-    out = cost, _i32(lay), pm, quant, recon.reshape(B, sz, sz)
+    # pm: the winner's index in its layout's 35
+    out = fused_node.pick(cost1, q1, r1, cost3, q4, r4)
     if not return_sub0:
         return out
     r0 = r4[..., 0:h, 0:h]
@@ -194,7 +164,6 @@ def _eval_node_rmd(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
     (cost (B,), lay (B,) in {1, 2}, pm (B,), quant (B, sz*sz) int16,
     recon (B, sz, sz) uint8)."""
     ctxv, sigv = prices
-    dev = A.device
     top, left = _node_ctx(A, y0, x0, sz)
     blk = orig[:, y0:y0 + sz, x0:x0 + sz].contiguous()
     # the K kept modes (ascending) and their predictions (X2 on the card)
@@ -210,23 +179,7 @@ def _eval_node_rmd(qpd6, A, orig, fl, pml, pma, y0, x0, sz, prices,
                                       modes=modesT)
     cost3 = fused_node.rate_cost(sz, qpd6, q4, s4, ctxv, sigv, pml, pma,
                                  HDR_LAY2_BINS, modesT, split=True)
-
-    Tn = cost3.shape[-1]
-    costs = torch.cat([cost1, cost3], 1)               # (B, K+T)
-    cost, sel = _argmin_first(costs, 1)
-    lay = torch.where(sel < K, 1, 2)
-    B = costs.shape[0]
-    nn = sz * sz
-    oh1 = torch.arange(K, dtype=torch.int32, device=dev)[None, :] \
-        == sel[:, None]
-    oh3 = torch.arange(Tn, dtype=torch.int32, device=dev)[None, :] \
-        == (sel[:, None] - K)
-    pm = torch.cat([modesK, modesT], 1).gather(1, sel[:, None].long())[:, 0]
-    quant = (_onehot_pick(qK.reshape(B, K, nn), oh1, torch.int16)
-             + _onehot_pick(q4.reshape(B, Tn, nn), oh3, torch.int16))
-    recon = (_onehot_pick(rK.reshape(B, K, nn), oh1, torch.uint8)
-             + _onehot_pick(r4.reshape(B, Tn, nn), oh3, torch.uint8))
-    return cost, _i32(lay), pm, quant, recon.reshape(B, sz, sz)
+    return fused_node.pick(cost1, qK, rK, cost3, q4, r4, modesK, modesT)
 
 
 def _eval_nxn(qpd6, A, orig, fl8, pml, pma, pl_lo, pa_hi, y0, x0, prices,
@@ -238,13 +191,17 @@ def _eval_nxn(qpd6, A, orig, fl8, pml, pma, pl_lo, pa_hi, y0, x0, prices,
     and above PU1. sub0: PU0's eval when the caller has it (the dense
     TU-split's sub0, _eval_node(return_sub0=True)); None evaluates it here.
     A is not modified. Returns (cost (B,), pm4 (B, 4), quant (B, 64) z-order
-    int16, recon (B, 8, 8) uint8)."""
+    int16, recon (B, 8, 8) uint8). Each PU's X4 pick writes its mode and
+    levels into their slots of pm4 and quant, its recon into the leaf's
+    canvas and its cost into the running total."""
     ctxv, sigv = prices
     f4 = _sub_flags((fl8[:, 0], fl8[:, 1], fl8[:, 2], fl8[:, 3]))
     local = A.clone()
     hdr_bits = (HDR_NXN_BINS * ctxv + HALF) >> 15
     total = rdcost.calc_rd_cost(qpd6, torch.zeros_like(_i32(pml)), hdr_bits)
-    sub_pm, quants = [], []
+    B = pml.shape[0]
+    pm4 = torch.empty((B, 4), dtype=torch.int32, device=A.device)
+    quant = torch.empty((B, 64), dtype=torch.int16, device=A.device)
     for isub, (dy, dx) in enumerate(_SUB):
         y, x = y0 + 4 * dy, x0 + 4 * dx
         if isub == 0 and sub0 is not None:
@@ -257,25 +214,18 @@ def _eval_nxn(qpd6, A, orig, fl8, pml, pma, pl_lo, pa_hi, y0, x0, prices,
         if isub == 0:
             pl, pa = pml, pma
         elif isub == 1:
-            pl, pa = sub_pm[0], pa_hi
+            pl, pa = pm4[:, 0], pa_hi
         elif isub == 2:
-            pl, pa = pl_lo, sub_pm[0]
+            pl, pa = pl_lo, pm4[:, 0]
         else:
-            pl, pa = sub_pm[2], sub_pm[1]
+            pl, pa = pm4[:, 2], pm4[:, 1]
         # one header bin: the PU's Y cbf
         cost = fused_node.rate_cost(4, qpd6, q, s, ctxv, sigv, pl, pa, 1)
-        c, sel = _argmin_first(cost, 1)
-        B = sel.shape[0]
-        oh = torch.arange(MODES, dtype=torch.int32, device=A.device)[None, :] \
-            == sel[:, None]
-        qw = _onehot_pick(q.reshape(B, MODES, 16), oh, torch.int16)
-        rw = _onehot_pick(r.reshape(B, MODES, 16), oh, torch.uint8)
-        local[:, y + 1:y + 5, x + 1:x + 5] = rw.reshape(B, 4, 4)
-        total = torch.where(total > I32_MAX - c, I32_MAX, total + c)
-        sub_pm.append(sel)
-        quants.append(qw)
+        fused_node.pick(cost, q, r, pm=pm4[:, isub],
+                        quant=quant[:, 16 * isub:16 * isub + 16],
+                        recon=local[:, y + 1:y + 5, x + 1:x + 5], total=total)
     recon = local[:, y0 + 1:y0 + 9, x0 + 1:x0 + 9]
-    return total, torch.stack(sub_pm, -1), torch.cat(quants, -1), recon
+    return total, pm4, quant, recon
 
 
 # ------------------------------------------------------------- front core

@@ -1,9 +1,9 @@
-"""Fused node kernels X1-X3 and their plain PyTorch versions.
+"""Fused node kernels X1-X4 and their plain PyTorch versions.
 
 The JAX package runs a front step as one compiled program, and XLA fuses
 the element-wise and small-reduction chains of its node evaluations. Run
 eagerly, the same chains are tens of thousands of small kernels a front
-step. Three kernels written by hand (csrc/fused_node.cu) stand for those
+step. Four kernels written by hand (csrc/fused_node.cu) stand for those
 fusions; none is a port of a Pallas kernel:
 
   X1 predict    intra prediction with its borders: ops/intra.build_borders
@@ -17,15 +17,21 @@ fusions; none is a port of a Pallas kernel:
   X3 rate_cost  per candidate the estimated rate (<<15: coefficient levels,
                 last-XY and significance map, pmode, header bins) rounded to
                 bits, and its RD cost with the candidate's SSE
+  X4 pick       a node's or NxN PU's winner (models/wavefront's node
+                functions): the first minimum over one or two candidate
+                sets, its layout and mode, its levels and recon; for a PU,
+                the recon into the leaf's canvas and the running total
 
 Each wrapper runs its plain version, the op chain the kernel replaces, on
 CPU tensors; on CUDA tensors it launches its kernel or raises, with no
 fallback. Each launch adds one to its kernel's counter (X1.LAUNCHES, ...).
-The rate model's pieces (_est_rate ... _compress_u8) live here, beside the
-kernels that fuse them; models/wavefront imports them.
+The rate model's pieces (_est_rate ... _compress_u8) and the picks'
+(_argmin_first, _onehot_pick) live here, beside the kernels that fuse them;
+models/wavefront imports them.
 """
 import ctypes
 import functools
+import math
 import pathlib
 import threading
 import types
@@ -52,6 +58,7 @@ HALF = 1 << 14                # fixed->integer-bit rounding
 X1 = types.SimpleNamespace(LAUNCHES=0)
 X2 = types.SimpleNamespace(LAUNCHES=0)
 X3 = types.SimpleNamespace(LAUNCHES=0)
+X4 = types.SimpleNamespace(LAUNCHES=0)
 
 _lock = threading.Lock()
 _lib = None
@@ -246,6 +253,23 @@ def _compress_u8(oh, x):
     return acc.to(torch.uint8).reshape(B, oh.shape[-2], *x.shape[-2:])
 
 
+def _argmin_first(x, dim):
+    """(min, first index of the min) along dim — ties go to the lower index,
+    as jnp.argmin's do."""
+    mn = x.min(dim, keepdim=True).values
+    idx = torch.arange(x.shape[dim], dtype=torch.int32, device=x.device)
+    idx = idx.reshape((-1,) + (1,) * (x.dim() - 1 - (dim % x.dim())))
+    first = torch.where(x == mn, idx, x.shape[dim]).min(dim).values
+    return mn.squeeze(dim), _i32(first)
+
+
+def _onehot_pick(x, oh, dtype):
+    """(B, M, nn) values, (B, M) one-hot -> (B, nn) in `dtype` (a masked
+    sum with a single nonzero term, computed in int32 and narrowed)."""
+    return (_i32(x) * _i32(oh)[:, :, None]).sum(1, dtype=torch.int32) \
+        .to(dtype)
+
+
 # ---------------------------------------------------------- plain versions
 
 def _sub_borders(sz, isub, ctx_top, ctx_left, flags, canvas):
@@ -359,6 +383,39 @@ def rate_cost_plain(sz, qpd6, q, sse, ctxv, sigv, pml, pma, hdr_bins,
     return rdcost.calc_rd_cost(qpd6, sse, (r + HALF) >> 15)
 
 
+def pick_plain(cost1, q1, r1, cost2=None, q2=None, r2=None, modes1=None,
+               modes2=None, pm=None, quant=None, recon=None, total=None):
+    """X4's plain version (see pick): the node functions' argmin and
+    one-hot picks."""
+    B, M1 = cost1.shape
+    nn = math.prod(q1.shape[2:])
+    two = cost2 is not None
+    cost, sel = _argmin_first(torch.cat([cost1, cost2], 1) if two else cost1,
+                              1)
+    lay = _i32(torch.where(sel < M1, 1, 2))
+    if modes1 is None:
+        p = torch.where(sel < M1, sel, sel - M1) if two else sel
+    else:
+        p = (torch.cat([modes1, modes2], 1) if two else modes1).gather(
+            1, sel[:, None].long())[:, 0]
+    oh1 = torch.arange(M1, dtype=torch.int32, device=sel.device)[None, :] \
+        == sel[:, None]
+    qw = _onehot_pick(q1.reshape(B, M1, nn), oh1, torch.int16)
+    rw = _onehot_pick(r1.reshape(B, M1, nn), oh1, torch.uint8)
+    if two:
+        M2 = cost2.shape[1]
+        oh2 = torch.arange(M2, dtype=torch.int32, device=sel.device)[
+            None, :] == (sel[:, None] - M1)
+        qw = qw + _onehot_pick(q2.reshape(B, M2, nn), oh2, torch.int16)
+        rw = rw + _onehot_pick(r2.reshape(B, M2, nn), oh2, torch.uint8)
+    rw = rw.reshape((B,) + tuple(r1.shape[2:]))
+    if total is not None:
+        total.copy_(torch.where(total > rdcost.I32_MAX - cost, rdcost.I32_MAX,
+                                total + cost))
+    return (cost, lay) + tuple(o if d is None else d.copy_(o) for d, o in
+                               ((pm, p), (quant, qw), (recon, rw)))
+
+
 # ------------------------------------------------------------------ kernels
 
 def build(force: bool = False):
@@ -387,6 +444,8 @@ def _load():
             lib.hevce_x3_launch.argtypes = (
                 [i32] * 4 + [vp, vp] + [vp, i64] * 4
                 + [vp, vp, i32, i32, i32, ctypes.POINTER(i32), vp, vp])
+            lib.hevce_x4_launch.restype = i32
+            lib.hevce_x4_launch.argtypes = [ctypes.POINTER(i64), i32, vp]
             _lib = lib
         return _lib
 
@@ -618,3 +677,111 @@ def rate_cost(sz, qpd6, q, sse, ctxv, sigv, pml, pma, hdr_bins, modes=None,
     _launched(rc, "X3")
     X3.LAUNCHES += 1
     return cost
+
+
+def _ivec(t, rows, n, name):
+    """X4's view of int32 values (rows, n): [pointer, row stride, element
+    stride]."""
+    if t.dtype != torch.int32 or tuple(t.shape) != (rows, n):
+        raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, expected "
+                         f"int32 ({rows}, {n})")
+    return [t.data_ptr(), t.stride(0), t.stride(1)]
+
+
+def _blocks(t, lead, nn, dtype, name):
+    """X4's view of blocks of nn elements, t (*lead, ...): [pointer, row
+    stride, candidate stride (0 without a candidate axis), block-row stride,
+    element stride, block width, vec]. The block's dims merge into rows of
+    its last dim as a view (a stride that does not merge raises: no copy);
+    vec is 1 when every block is contiguous and 16-byte aligned."""
+    if t.dtype != dtype or tuple(t.shape[:len(lead)]) != tuple(lead) or \
+            math.prod(t.shape[len(lead):]) != nn:
+        raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, expected "
+                         f"{dtype} {tuple(lead)} + blocks of {nn}")
+    w = t.shape[-1]
+    try:
+        v = t.view(tuple(lead) + (-1, w))
+    except RuntimeError:
+        raise ValueError(f"{name}: strides {t.stride()} do not merge the "
+                         f"block into rows of {w}") from None
+    st = v.stride()
+    size = t.element_size()
+    lead_st = [s for s, d in zip(st[:len(lead)], lead) if d > 1]
+    vec = int(st[-1] == 1 and (st[-2] == w or v.shape[-2] == 1)
+              and t.data_ptr() % 16 == 0 and (nn * size) % 16 == 0
+              and all(s * size % 16 == 0 for s in lead_st))
+    ms = st[1] if len(lead) == 2 else 0
+    return [t.data_ptr(), st[0], ms, st[-2], st[-1], w, vec]
+
+
+def pick(cost1, q1, r1, cost2=None, q2=None, r2=None, modes1=None,
+         modes2=None, pm=None, quant=None, recon=None, total=None):
+    """X4: the winner of one or two candidate sets in each of B lane rows.
+
+    A set: costs (B, M) int32, levels (B, M, ...) int16 and recon (B, M,
+    ...) uint8 of nn elements a candidate (any strides whose block dims
+    merge into rows, as views: a TU split's (B, T, 4, h, h) levels, a 4x4
+    corner of a canvas), and optionally its mode map (B, M) int32. The
+    winner is the first minimum of the sets' costs joined (ties to the
+    lower index; _argmin_first's). Returns (cost (B,) int32, lay (B,)
+    int32: 1 if the winner is in the first set, else 2, pm (B,) int32: its
+    mode from the set's map, else its index in its set, quant (B, nn) int16
+    and recon (B, *r1.shape[2:]) uint8: its levels and recon).
+    pm / quant / recon given ((B,) int32, (B, nn) int16, (B, ...) uint8
+    views, e.g. an NxN leaf's slots and the 4x4 of its canvas where the PU
+    goes) are written in place and returned. total (B,) int32: the running
+    total, in place: total > I32_MAX - cost ? I32_MAX : total + cost.
+    CPU tensors run pick_plain; CUDA tensors launch X4."""
+    ts = (cost1, q1, r1, cost2, q2, r2, modes1, modes2, pm, quant, recon,
+          total)
+    if _on_cpu(*ts):
+        return pick_plain(*ts)
+    dev = _cuda(*ts)
+    two = cost2 is not None
+    if two != (q2 is not None) or two != (r2 is not None) or \
+            (modes2 is not None and not two) or \
+            (two and (modes1 is None) != (modes2 is None)):
+        raise ValueError("X4 takes one set, or two with a mode map for both "
+                         "or neither")
+    if cost1.dim() != 2:
+        raise ValueError(f"X4 costs: (B, M), got {tuple(cost1.shape)}")
+    B, M1 = cost1.shape
+    M2 = cost2.shape[-1] if two else 0
+    nn = math.prod(q1.shape[2:])
+    if M1 < 1 or (two and M2 < 1):
+        raise ValueError("X4 takes sets of at least one candidate")
+    cost = torch.empty((B,), dtype=torch.int32, device=dev)
+    lay = torch.empty((B,), dtype=torch.int32, device=dev)
+    pm = torch.empty((B,), dtype=torch.int32, device=dev) if pm is None else pm
+    if quant is None:
+        quant = torch.empty((B, nn), dtype=torch.int16, device=dev)
+    if recon is None:
+        recon = torch.empty((B,) + tuple(r1.shape[2:]), dtype=torch.uint8,
+                            device=dev)
+    # the launch's words (csrc hevce_x4_launch): both sets' costs, mode maps,
+    # levels and recons, a missing one as zeros
+    sets = ((cost1, q1, r1, modes1, M1), (cost2, q2, r2, modes2, M2))
+    words = [B, 1 + two, nn, M1, M2]
+    for part, dtype in ((0, None), (3, None), (1, torch.int16),
+                        (2, torch.uint8)):
+        for k, s in enumerate(sets):
+            name = f"set {k + 1}"
+            if s[part] is None:
+                words += [0] * (3 if dtype is None else 7)
+            elif dtype is None:
+                words += _ivec(s[part], B, s[4], name)
+            else:
+                words += _blocks(s[part], (B, s[4]), nn, dtype, name)
+    words += [cost.data_ptr(), lay.data_ptr()]
+    words += _vec(pm, B, "pm") + [0]
+    words += [0] * 3 if total is None else _vec(total, B, "total") + [0]
+    words += _blocks(quant, (B,), nn, torch.int16, "quant")
+    words += _blocks(recon, (B,), nn, torch.uint8, "recon")
+    if B == 0:
+        return cost, lay, pm, quant, recon
+    rc = _load().hevce_x4_launch((ctypes.c_longlong * len(words))(*words),
+                                 len(words),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _launched(rc, "X4")
+    X4.LAUNCHES += 1
+    return cost, lay, pm, quant, recon

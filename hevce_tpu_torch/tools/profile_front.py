@@ -63,7 +63,8 @@ QPD6 = 2
 
 # the op chains of a front step: (label, [(module, function name)]); the
 # rate model's pieces run inside X2's and X3's plain versions (and
-# _topk_mask / _sel_i32 also in the node functions themselves)
+# _topk_mask / _sel_i32 also in the node functions themselves), the picks
+# inside X4's
 CHAINS = (
     ("rate+cost", [(fused_node, "_pmode_rate"), (fused_node, "_mpm_triplet"),
                    (fused_node, "_sel_i32"), (wf, "_sel_i32"),
@@ -76,7 +77,7 @@ CHAINS = (
                          (fused_node, "_compress_u8"),
                          (cu_eval, "eval_2nx2n"), (cu_eval, "eval_tusplit")]),
     ("topk", [(fused_node, "_topk_mask"), (wf, "_topk_mask")]),
-    ("picks", [(wf, "_argmin_first"), (wf, "_onehot_pick")]),
+    ("picks", [(fused_node, "_argmin_first"), (fused_node, "_onehot_pick")]),
     ("node (own)", [(wf, "_eval_node"), (wf, "_eval_node_rmd"),
                     (wf, "_eval_nxn")]),
 )
@@ -86,7 +87,8 @@ OUTSIDE = "front_core (own)"
 KERNELS = (("K1", (fused_eval, "pipeline_sse"), "k1_kernel"),
            ("X1 predict", (fused_node, "predict"), "x1_predict"),
            ("X2 preselect", (fused_node, "preselect"), "x2_preselect"),
-           ("X3 rate_cost", (fused_node, "rate_cost"), "x3_rate_cost"))
+           ("X3 rate_cost", (fused_node, "rate_cost"), "x3_rate_cost"),
+           ("X4 pick", (fused_node, "pick"), "x4_pick"))
 
 
 def load_images(paths, batch, seed):

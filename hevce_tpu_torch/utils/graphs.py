@@ -13,7 +13,7 @@ a graph with a private memory pool (CUDAGraph(keep_graph=True)), with host
 syncs raised as errors (torch.cuda.set_sync_debug_mode), and its
 instantiation. A failed capture raises; nothing runs the step eagerly on
 CUDA after it. The kernel counters (COUNTERS: K1's fused_eval.LAUNCHES,
-K2's cabac_scan.LAUNCHES, X1-X3's fused_node.X1.LAUNCHES ...) keep counting
+K2's cabac_scan.LAUNCHES, X1-X4's fused_node.X1.LAUNCHES ...) keep counting
 the kernels the card runs: the warm-up's launches stay, the capture's (no
 kernel runs) are taken back and added again at every replay.
 
@@ -33,7 +33,7 @@ from hevce_tpu_torch.ops import cabac_scan, fused_eval, fused_node
 
 # the kernel wrappers whose LAUNCHES count launches on the card
 COUNTERS = {"k1": fused_eval, "k2": cabac_scan, "x1": fused_node.X1,
-            "x2": fused_node.X2, "x3": fused_node.X3}
+            "x2": fused_node.X2, "x3": fused_node.X3, "x4": fused_node.X4}
 # every step captured in this process, in order (what the count checks of
 # chip_smoke.py add: one warm-up step per capture)
 CAPTURED = []

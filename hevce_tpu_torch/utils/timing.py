@@ -100,6 +100,7 @@ def wrapper_launches() -> dict:
             "x1_predict": fused_node.X1.LAUNCHES,
             "x2_preselect": fused_node.X2.LAUNCHES,
             "x3_rate_cost": fused_node.X3.LAUNCHES,
+            "x4_pick": fused_node.X4.LAUNCHES,
             "p1_add_one": probes.LAUNCHES["add_one"],
             "p2_int8_mm": probes.LAUNCHES["int8_mm"],
             "p3_fused4": probes.LAUNCHES["fused4"]}

@@ -1177,12 +1177,155 @@ def test_fused_node_wrappers_reject_what_they_do_not_take(cuda_device):
               for _ in range(4)), 1)
 
 
+def _x4_costs(rng, dev, kind, shape):
+    """RD costs: random, few values (ties at the minimum across the sets),
+    or mostly I32_MAX (the first rows all of it)."""
+    if kind == "random":
+        c = rng.integers(0, 1 << 24, shape)
+    elif kind == "ties":
+        c = rng.integers(5, 8, shape)
+    else:
+        c = np.where(rng.random(shape) < 0.8, 2**31 - 1,
+                     rng.integers(2**31 - 65, 2**31 - 1, shape))
+        c[:3] = 2**31 - 1
+    return torch.from_numpy(c.astype(np.int32)).to(dev)
+
+
+def _x4_node_args(rng, dev, rows, sz, rmd, kind):
+    """one node's pick as the front step makes it: RMD (12 candidates and
+    the TU split's top 4, with their mode maps) or dense (35 + 35), the
+    split's levels as (rows, T, 4, h, h) sub-TUs."""
+    M1, M2 = (12, 4) if rmd else (35, 35)
+    h = sz // 2
+    blk = lambda *s, lo, hi, dt: torch.from_numpy(rng.integers(
+        lo, hi, s).astype(dt)).to(dev)
+    args = [_x4_costs(rng, dev, kind, (rows, M1)),
+            blk(rows, M1, sz, sz, lo=-32768, hi=32768, dt=np.int16),
+            blk(rows, M1, sz, sz, lo=0, hi=256, dt=np.uint8),
+            _x4_costs(rng, dev, kind, (rows, M2)),
+            blk(rows, M2, 4, h, h, lo=-32768, hi=32768, dt=np.int16),
+            blk(rows, M2, sz, sz, lo=0, hi=256, dt=np.uint8)]
+    if rmd:
+        modesK = np.sort(rng.choice(35, (rows, M1)), -1).astype(np.int32)
+        args += [torch.from_numpy(modesK).to(dev),
+                 torch.from_numpy(np.ascontiguousarray(
+                     modesK[:, :M2][:, ::-1])).to(dev)]
+    return args
+
+
+def _x4_pu_run(fn, rng_seed, dev, rows, kind):
+    """the four PUs of an NxN leaf through fn (pick or pick_plain), each
+    writing its mode and levels into their slots, its recon into a canvas
+    that is itself a view of a larger one, its cost into a running total
+    that starts at the saturation edges; PU0 reads a dense TU split's first
+    sub-TU through views. Returns what every call returned, then the
+    slots, the whole canvas and the total."""
+    rng = np.random.default_rng(rng_seed)
+    u8 = lambda *s: torch.from_numpy(rng.integers(0, 256, s).astype(
+        np.uint8)).to(dev)
+    i16 = lambda *s: torch.from_numpy(rng.integers(-32768, 32768, s).astype(
+        np.int16)).to(dev)
+    big = u8(rows, 40, 41)
+    local = big[:, 4:37, 5:38]
+    total = rng.integers(0, 2**31 - 1, rows)
+    total[:4] = (2**31 - 1, 2**31 - 2, 0, 2**31 - 1 - (1 << 24))[:rows]
+    total = torch.from_numpy(total.astype(np.int32)).to(dev)
+    pm4 = torch.full((rows, 4), -1, dtype=torch.int32, device=dev)
+    quant = torch.full((rows, 64), 7, dtype=torch.int16, device=dev)
+    q4, r4 = i16(rows, 35, 4, 4, 4), u8(rows, 35, 8, 8)
+    outs = []
+    for isub, (dy, dx) in enumerate(wf._SUB):
+        y, x = 8 + 4 * dy, 16 + 4 * dx
+        q, r = ((q4[..., 0, :, :], r4[..., 0:4, 0:4]) if isub == 0
+                else (i16(rows, 35, 4, 4), u8(rows, 35, 4, 4)))
+        cost = _x4_costs(rng, dev, kind, (rows, 35))
+        outs += fn(cost, q, r, pm=pm4[:, isub],
+                   quant=quant[:, 16 * isub:16 * isub + 16],
+                   recon=local[:, y + 1:y + 5, x + 1:x + 5], total=total)
+    return tuple(outs) + (pm4, quant, big, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "saturated"])
+def test_x4_pick_matches_plain_on_card(cuda_device, kind):
+    """X4 equals its plain version on the card, tolerance 0, at every shape
+    the front step gives it: RMD (8 / 16 / 32, 12 + 4) with mode maps,
+    dense (8 / 16 / 32, 35 + 35) and the NxN PUs (4, 35) with their slots,
+    canvas and running total; at 1, 16 and 288 lanes; costs that tie at the
+    minimum or sit at I32_MAX. One launch a call."""
+    for rows in (1, 16, 288):
+        for sz in (8, 16, 32):
+            for rmd in (True, False):
+                rng = np.random.default_rng(rows * 100 + sz + 7 * rmd)
+                args = _x4_node_args(rng, cuda_device, rows, sz, rmd, kind)
+                n0 = fused_node.X4.LAUNCHES
+                got = fused_node.pick(*args)
+                torch.cuda.synchronize()
+                assert fused_node.X4.LAUNCHES == n0 + 1
+                _x_same(got, fused_node.pick_plain(*args))
+        n0 = fused_node.X4.LAUNCHES
+        got = _x4_pu_run(fused_node.pick, rows, cuda_device, rows, kind)
+        torch.cuda.synchronize()
+        assert fused_node.X4.LAUNCHES == n0 + 4
+        _x_same(got, _x4_pu_run(fused_node.pick_plain, rows, cuda_device,
+                                rows, kind))
+
+
+@pytest.mark.cuda
+def test_x4_pick_in_a_captured_graph_equals_eager(cuda_device):
+    """a captured X4 call (a dense node's pick and a PU's, with its slots,
+    canvas and total) replays what the eager call gives, on inputs
+    rewritten in place between replays."""
+    rng = np.random.default_rng(31)
+    args = _x4_node_args(rng, cuda_device, 288, 32, False, "ties")
+    pu = _x4_node_args(rng, cuda_device, 288, 8, False, "random")[:3]
+    pu[1], pu[2] = pu[1][:, :, :4, :4], pu[2][:, :, :4, :4]
+    canvas = torch.zeros((288, 33, 33), dtype=torch.uint8, device=cuda_device)
+    total = torch.zeros(288, dtype=torch.int32, device=cuda_device)
+
+    def step():
+        total.zero_()
+        return fused_node.pick(*args) + fused_node.pick(
+            *pu, recon=canvas[:, 5:9, 9:13], total=total)[:4]
+
+    captured = graphs.CapturedStep(step, cuda_device, "x4_test")
+    graphs.CAPTURED.remove(captured)
+    assert captured.launches["x4"] == 2
+    for k in range(2):
+        out = tuple(t.clone() for t in captured()) + (canvas.clone(),
+                                                      total.clone())
+        eager = step() + (canvas.clone(), total.clone())
+        torch.cuda.synchronize()
+        _x_same(out, eager)
+        for t in args[:1] + args[3:4] + pu[:1]:
+            t.copy_(_x4_costs(rng, cuda_device, "random", tuple(t.shape)))
+        args[1].neg_()
+        pu[2].add_(k + 1)
+
+
+@pytest.mark.cuda
+def test_x4_rejects_what_it_does_not_take(cuda_device):
+    """a second set without its levels, one mode map of two, uint8 levels
+    and block dims that do not merge as a view are refused."""
+    args = _x4_node_args(np.random.default_rng(4), cuda_device, 4, 8, True,
+                         "random")
+    with pytest.raises(ValueError):
+        fused_node.pick(*args[:4])
+    with pytest.raises(ValueError):
+        fused_node.pick(*args[:7])
+    with pytest.raises(ValueError):
+        fused_node.pick(args[0], args[2], args[2])
+    with pytest.raises(ValueError):
+        fused_node.pick(args[3], args[4].transpose(3, 4), args[5])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rmd,per_step", [
-    ((12, 4), {"k1": 169, "x1": 148, "x2": 21, "x3": 106}),
-    (None, {"k1": 153, "x1": 153, "x2": 0, "x3": 106})])
+    ((12, 4), {"k1": 169, "x1": 148, "x2": 21, "x3": 106, "x4": 85}),
+    (None, {"k1": 153, "x1": 153, "x2": 0, "x3": 106, "x4": 85})])
 def test_graph_counts_x_launches_the_card_ran(cuda_device, rmd, per_step):
-    """X1-X3's LAUNCHES on the slice runner's graph: the warm-up step's
+    """X1-X4's LAUNCHES on the slice runner's graph: the warm-up step's
+    (an eager front step: X4 85, one a node and an NxN PU, in both modes)
     when a runner is built, the captured step's at every replay (as for
     K1); a profiled call holds them all; the records equal the CPU's."""
     rng = np.random.default_rng(13 if rmd else 14)
@@ -1207,5 +1350,5 @@ def test_graph_counts_x_launches_the_card_ran(cuda_device, rmd, per_step):
     kernels, complete = timing.card_kernels(lambda: runner(O, cv, sv))
     seen = {x: sum(n for k, _, n in kernels if tag in k) for x, tag in (
         ("k1", "k1_kernel"), ("x1", "x1_predict"), ("x2", "x2_preselect"),
-        ("x3", "x3_rate_cost"))}
+        ("x3", "x3_rate_cost"), ("x4", "x4_pick"))}
     assert complete and seen == {k: n * D for k, n in per_step.items()}

@@ -565,13 +565,15 @@ def test_wrappers_take_cpu_or_one_cuda_device():
 
 @pytest.mark.parametrize("rmd,counts", [
     ((12, 4), {"X1 predict": 148, "X2 preselect": 21, "X3 rate_cost": 106,
-               "K1": 169}),
-    (None, {"X1 predict": 153, "X3 rate_cost": 106, "K1": 153})])
+               "X4 pick": 85, "K1": 169}),
+    (None, {"X1 predict": 153, "X3 rate_cost": 106, "X4 pick": 85,
+            "K1": 153})])
 def test_one_front_step_launches_few_kernels(rmd, counts):
     """one eager front step, counted by the chain tool on the CPU: each
     kernel wrapper is called as often as the code implies (X1: the NxN PUs
     and the TU splits' sub-TUs, with the dense 2Nx2N; X2: one per RMD node;
-    X3: two per node and one per NxN PU), and the step's ops, a kernel
+    X3: two per node and one per NxN PU; X4: one per node and per NxN
+    PU), and the step's ops, a kernel
     each on the card, stay under a quarter of the eager step's 43,381
     graph nodes before the fused node kernels."""
     rows = profile_front.chains(torch.device("cpu"), 1, 0, rmd,
